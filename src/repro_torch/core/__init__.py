@@ -1,0 +1,24 @@
+"""ASH core over torch tensors (counterpart of ``repro.core``)."""
+from repro_torch.core.types import (
+    ASHConfig, ASHModel, ASHPayload, ASHStats, QueryPrep,
+)
+from repro_torch.core import quantization
+from repro_torch.core import learning
+from repro_torch.core import ash
+from repro_torch.core import scoring
+from repro_torch.core.ash import train, encode, decode, random_model
+from repro_torch.core.scoring import (
+    payload_stats,
+    prepare_queries,
+    score_dot,
+    score_l2,
+    score_cosine,
+)
+
+__all__ = [
+    "ASHConfig", "ASHModel", "ASHPayload", "ASHStats", "QueryPrep",
+    "quantization", "learning", "ash", "scoring",
+    "train", "encode", "decode", "random_model",
+    "payload_stats", "prepare_queries", "score_dot", "score_l2",
+    "score_cosine",
+]

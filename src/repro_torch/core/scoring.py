@@ -1,0 +1,133 @@
+"""Similarity computations from ASH payloads.
+
+The asymmetric dot product (Eq. 20), Euclidean distance and cosine
+similarity (Appendix A): the plain reference scorers.  The CUDA
+kernels in ``repro_torch.kernels`` are held against their plain
+versions in ``repro_torch.kernels.ref``, which apply the same terms.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import quantization as Q
+from repro_torch.core.types import ASHModel, ASHPayload, ASHStats, QueryPrep
+from repro_torch.device import full_fp32
+
+_EPS = 1e-12
+
+
+def prepare_queries(model: ASHModel, q: torch.Tensor) -> QueryPrep:
+    """One-time per-query work: q_breve = W q, <q, mu_c>, ||q||^2.
+    ``q`` moves to the model's device."""
+    full_fp32()
+    q32 = q.to(device=model.device, dtype=torch.float32)
+    return QueryPrep(
+        q=q32,
+        q_proj=q32 @ model.W.T,
+        ip_q_landmarks=q32 @ model.landmarks.T,
+        q_sq_norm=(q32 * q32).sum(dim=-1),
+    )
+
+
+def _unpacked(payload: ASHPayload) -> torch.Tensor:
+    return Q.unpack_codes(payload.codes, payload.d, payload.b).to(
+        torch.float32
+    )
+
+
+def _recovered_full(model: ASHModel, payload: ASHPayload, V=None):
+    """One decompression pass -> every Table-1 recovery, including the
+    <W mu*, v> inner products."""
+    if V is None:
+        V = _unpacked(payload)
+    cl = payload.cluster.long()
+    vnorm = Q.code_norms(V)
+    scale = payload.scale.to(torch.float32)
+    offset = payload.offset.to(torch.float32)
+    res_norm = scale * vnorm
+    ip_Wmu_v = (model.W_landmarks[cl] * V).sum(dim=-1)
+    ip_x_mu = offset + scale * ip_Wmu_v + model.landmark_sq_norms[cl]
+    return V, vnorm, res_norm, ip_x_mu, ip_Wmu_v
+
+
+def recovered_terms(model: ASHModel, payload: ASHPayload, V=None):
+    """Recover (V float, ||v||, ||x-mu*||, <x, mu*>) from the payload."""
+    return _recovered_full(model, payload, V)[:4]
+
+
+def _x_sq_estimate(model, payload, vnorm, res_norm, ip_Wmu_v):
+    """||x||^2 estimate of Eq. (A.5), shared by :func:`payload_stats`
+    and :func:`score_cosine`."""
+    return (
+        res_norm**2
+        + 2.0 * (res_norm / torch.clamp(vnorm, min=_EPS)) * ip_Wmu_v
+        + model.landmark_sq_norms[payload.cluster.long()]
+    )
+
+
+def payload_stats(model: ASHModel, payload: ASHPayload) -> ASHStats:
+    """The :class:`ASHStats` row statistics of a payload (one
+    decompression pass, at build/add time)."""
+    _, vnorm, res_norm, ip_x_mu, ip_Wmu_v = _recovered_full(model, payload)
+    x_sq = _x_sq_estimate(model, payload, vnorm, res_norm, ip_Wmu_v)
+    return ASHStats(
+        res_norm=res_norm.to(torch.float32),
+        ip_x_mu=ip_x_mu.to(torch.float32),
+        x_sq=x_sq.to(torch.float32),
+    )
+
+
+def score_dot(
+    model: ASHModel, prep: QueryPrep, payload: ASHPayload,
+    *, rowwise: bool = False,
+) -> torch.Tensor:
+    """<q, x_i> approximation, Eq. (20): (m, n).
+
+    rowwise=True computes the dot term as a broadcast-multiply and
+    last-axis reduce instead of a matrix product: same values up to
+    reduction order, with an order that does not depend on m.
+    """
+    return _score_dot_from_V(prep, payload, _unpacked(payload), rowwise)
+
+
+def _score_dot_from_V(prep, payload, V, rowwise):
+    full_fp32()
+    if rowwise:
+        dot = (prep.q_proj[:, None, :] * V[None, :, :]).sum(dim=-1)
+    else:
+        dot = prep.q_proj @ V.T
+    scale = payload.scale.to(torch.float32)[None, :]
+    offset = payload.offset.to(torch.float32)[None, :]
+    query_compute = prep.ip_q_landmarks[:, payload.cluster.long()]
+    return scale * dot + query_compute + offset
+
+
+def score_l2(
+    model: ASHModel, prep: QueryPrep, payload: ASHPayload,
+    *, rowwise: bool = False,
+) -> torch.Tensor:
+    """||q - x_i||^2 approximation (Appendix A): (m, n)."""
+    V, _, res_norm, ip_x_mu = recovered_terms(model, payload)
+    ip_qx = _score_dot_from_V(prep, payload, V, rowwise)
+    cl = payload.cluster.long()
+    mu_sq = model.landmark_sq_norms[cl]
+    ip_q_mu = prep.ip_q_landmarks[:, cl]
+    q_sq_mu = prep.q_sq_norm[:, None] - 2.0 * ip_q_mu + mu_sq[None, :]
+    return (
+        q_sq_mu
+        + (res_norm**2)[None, :]
+        - 2.0 * (ip_qx - ip_x_mu[None, :] - ip_q_mu + mu_sq[None, :])
+    )
+
+
+def score_cosine(
+    model: ASHModel, prep: QueryPrep, payload: ASHPayload,
+    *, rowwise: bool = False,
+) -> torch.Tensor:
+    """cosSim(q, x_i) using the norm estimate of Eq. (A.5): (m, n)."""
+    V, vnorm, res_norm, _, ip_Wmu_v = _recovered_full(model, payload)
+    ip_qx = _score_dot_from_V(prep, payload, V, rowwise)
+    x_sq = _x_sq_estimate(model, payload, vnorm, res_norm, ip_Wmu_v)
+    x_norm = torch.sqrt(torch.clamp(x_sq, min=_EPS))
+    q_norm = torch.sqrt(torch.clamp(prep.q_sq_norm, min=_EPS))
+    return ip_qx / (q_norm[:, None] * x_norm[None, :])

@@ -1,0 +1,507 @@
+"""``AshIndex``: one build/search/persist surface (flat backend).
+
+Counterpart of ``repro.index.api``::
+
+    index = AshIndex.build(gen, X, ASHConfig(b=2, d=64, n_landmarks=64),
+                           metric="l2", keep_raw=True)   # on "cuda"
+    scores, ids = index.search(queries, k=10, rerank=100)
+    index.add(X_new); index.delete([3, 17]); index.compact()
+    index.save("/tmp/idx")
+    index = AshIndex.load("/tmp/idx")
+
+The on-disk format is the reference's: ``arrays.npz`` plus a
+``config.json`` manifest holding a crc32 per array, with bf16 arrays
+stored as uint16 bit patterns tagged ``"bfloat16"``.  An index saved by
+either package loads into the other.  Saves are atomic (a temp dir and
+one rename for a fresh target; ``.new`` files renamed in order over an
+existing one, rolled forward by :meth:`AshIndex.load`).
+"""
+from __future__ import annotations
+
+import json
+import os
+import pathlib
+import shutil
+import zlib
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import scoring as S
+from repro_torch.core.types import (
+    ASHConfig, ASHModel, ASHPayload, ASHStats, QueryPrep,
+)
+from repro_torch.device import resolve_device
+from repro_torch.index import common as C
+from repro_torch.index import flat as F
+
+FORMAT_VERSION = 1
+
+
+class CorruptIndexError(ValueError):
+    """A saved index failed an integrity check on load; names where and
+    which check."""
+
+    def __init__(self, path, check: str):
+        self.path = str(path)
+        self.check = check
+        super().__init__(f"corrupt index at {self.path}: {check}")
+
+
+_BACKENDS: dict[str, type] = {}
+
+
+def register_backend(cls):
+    """Class decorator: register an index backend under ``cls.name``."""
+    _BACKENDS[cls.name] = cls
+    return cls
+
+
+def available_backends() -> tuple[str, ...]:
+    return tuple(sorted(_BACKENDS))
+
+
+def _get_backend(name: str):
+    try:
+        return _BACKENDS[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown backend {name!r}; available: {available_backends()}"
+            " (ivf, sharded and tiered_ivf are not ported yet)"
+        ) from None
+
+
+# ---------------------------------------------------------------------------
+# Array (de)serialization: numpy .npz, bf16 stored as uint16 bit patterns
+# ---------------------------------------------------------------------------
+
+_STATS_FIELDS = ("res_norm", "ip_x_mu", "x_sq")
+
+
+def _encode_array(t: torch.Tensor) -> tuple[np.ndarray, str]:
+    """Tensor -> (savez-safe numpy array, dtype tag)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+    a = t.numpy()
+    return a, str(a.dtype)
+
+
+def _decode_array(a: np.ndarray, tag: str, device) -> torch.Tensor:
+    if tag == "bfloat16":
+        a = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(a).view(torch.bfloat16).to(device)
+    if a.dtype == np.uint32:  # packed codes travel as int32 bit patterns
+        a = np.ascontiguousarray(a).view(np.int32)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _fsync_dir(path: pathlib.Path) -> None:
+    try:
+        fd = os.open(path, os.O_RDONLY | getattr(os, "O_DIRECTORY", 0))
+    except OSError:
+        return  # platform without directory fsync
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _write_npz(path: pathlib.Path, encoded: dict[str, np.ndarray]) -> None:
+    with open(path, "wb") as f:
+        np.savez(f, **encoded)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def _write_manifest(path: pathlib.Path, meta: dict[str, Any]) -> None:
+    with open(path, "w") as f:
+        f.write(json.dumps(meta, indent=2))
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def _save_fresh(p: pathlib.Path, encoded, meta) -> None:
+    p.parent.mkdir(parents=True, exist_ok=True)
+    tmp = p.parent / f".{p.name}.tmp-{os.getpid()}"
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir()
+    _write_npz(tmp / "arrays.npz", encoded)
+    _write_manifest(tmp / "config.json", meta)
+    _fsync_dir(tmp)
+    os.replace(tmp, p)
+    _fsync_dir(p.parent)
+
+
+def _save_over(p: pathlib.Path, encoded, meta) -> None:
+    _write_npz(p / "arrays.new.npz", encoded)
+    _write_manifest(p / "config.new.json", meta)
+    _fsync_dir(p)
+    os.replace(p / "arrays.new.npz", p / "arrays.npz")
+    os.replace(p / "config.new.json", p / "config.json")
+    _fsync_dir(p)
+
+
+def _read_index_files(p: pathlib.Path, manifest: str = "config.json"):
+    """Read and integrity-check one (manifest, arrays.npz) pair; returns
+    (meta, encoded arrays).  Every failure raises CorruptIndexError."""
+    mpath = p / manifest
+    if not mpath.is_file():
+        raise CorruptIndexError(p, f"{manifest} missing")
+    try:
+        meta = json.loads(mpath.read_text())
+    except (ValueError, OSError) as e:
+        raise CorruptIndexError(p, f"{manifest} unreadable: {e}") from e
+    if not isinstance(meta, dict) or "format_version" not in meta:
+        raise CorruptIndexError(p, f"{manifest} is not an index manifest")
+    if meta["format_version"] != FORMAT_VERSION:
+        raise CorruptIndexError(
+            p, f"format_version {meta['format_version']} != {FORMAT_VERSION}"
+        )
+    apath = p / "arrays.npz"
+    if not apath.is_file():
+        raise CorruptIndexError(p, "arrays.npz missing")
+    try:
+        with np.load(apath) as npz:
+            encoded = {name: np.asarray(npz[name]) for name in npz.files}
+    except Exception as e:  # BadZipFile / ValueError / zlib / EOF / OS
+        raise CorruptIndexError(p, f"arrays.npz unreadable: {e}") from e
+    for name in encoded:
+        if name not in meta.get("dtypes", {}):
+            raise CorruptIndexError(
+                p, f"arrays.npz entry {name!r} missing from manifest dtypes"
+            )
+    checksums = meta.get("checksums")
+    if checksums is not None:
+        missing = set(checksums) - set(encoded)
+        if missing:
+            raise CorruptIndexError(
+                p, f"arrays.npz missing entries {sorted(missing)}"
+            )
+        extra = set(encoded) - set(checksums)
+        if extra:
+            raise CorruptIndexError(
+                p, f"arrays.npz has unmanifested entries {sorted(extra)}"
+            )
+        for name, want in checksums.items():
+            got = zlib.crc32(np.ascontiguousarray(encoded[name]).tobytes())
+            if got != want:
+                raise CorruptIndexError(
+                    p, f"checksum mismatch for {name!r}: "
+                    f"crc32 {got:#010x} != manifest {want:#010x}",
+                )
+    return meta, encoded
+
+
+def _read_index_dir(p: pathlib.Path):
+    """:func:`_read_index_files`, rolling forward an over-save that was
+    interrupted between its two renames."""
+    try:
+        return _read_index_files(p)
+    except CorruptIndexError as err:
+        if not (p / "config.new.json").is_file():
+            raise
+        try:
+            meta, encoded = _read_index_files(p, "config.new.json")
+        except CorruptIndexError:
+            raise err from None
+        os.replace(p / "config.new.json", p / "config.json")
+        (p / "arrays.new.npz").unlink(missing_ok=True)
+        _fsync_dir(p)
+        return meta, encoded
+
+
+# ---------------------------------------------------------------------------
+# Backends
+# ---------------------------------------------------------------------------
+
+
+@register_backend
+class FlatBackend:
+    """Exhaustive scan over the whole payload."""
+
+    name = "flat"
+
+    build = staticmethod(F._build)
+    search = staticmethod(F._search)
+    search_prepped = staticmethod(F._search_prepped)
+    add = staticmethod(F._add)
+    delete = staticmethod(F._delete)
+    compact = staticmethod(F._compact)
+
+    @staticmethod
+    def from_parts(model, payload, *, metric, raw=None):
+        return F.FlatIndex(
+            metric=metric, model=model, payload=payload, raw=raw,
+            stats=S.payload_stats(model, payload),
+        )
+
+    @staticmethod
+    def next_id_of(state):
+        return C.effective_next_id(state.next_id, state.ids, state.payload.n)
+
+    @staticmethod
+    def to_arrays(state):
+        arrays = {
+            **{f"model.{f}": getattr(state.model, f)
+               for f in ASHModel.ARRAY_FIELDS},
+            **{f"payload.{f}": getattr(state.payload, f)
+               for f in ASHPayload.ARRAY_FIELDS},
+        }
+        if state.stats is not None:
+            arrays.update({f"stats.{f}": getattr(state.stats, f)
+                           for f in _STATS_FIELDS})
+        for name in ("raw", "ids", "live"):
+            if getattr(state, name) is not None:
+                arrays[name] = getattr(state, name)
+        meta = {}
+        if state.next_id is not None:
+            meta["next_id"] = int(state.next_id)
+        return arrays, meta
+
+    @staticmethod
+    def from_arrays(arrays, meta, config, metric):
+        model = ASHModel(config=config, **{
+            f: arrays[f"model.{f}"].to(torch.float32)
+            for f in ASHModel.ARRAY_FIELDS
+        })
+        payload = ASHPayload(b=config.b, d=config.d, **{
+            f: arrays[f"payload.{f}"] for f in ASHPayload.ARRAY_FIELDS
+        })
+        if all(f"stats.{f}" in arrays for f in _STATS_FIELDS):
+            stats = ASHStats(**{f: arrays[f"stats.{f}"] for f in _STATS_FIELDS})
+        else:
+            stats = S.payload_stats(model, payload)
+        return F.FlatIndex(
+            metric=metric, model=model, payload=payload,
+            raw=arrays.get("raw"), stats=stats, ids=arrays.get("ids"),
+            live=arrays.get("live"), next_id=meta.get("next_id"),
+        )
+
+
+# ---------------------------------------------------------------------------
+# The facade
+# ---------------------------------------------------------------------------
+
+
+class AshIndex:
+    """Build / search / add / delete / compact / save / load.
+
+    :meth:`delete` tombstones rows (a validity bitmap fed to the fused
+    kernel's runtime mask operand, so deleted ids never surface);
+    :meth:`compact` evicts them.  Staged adds (``stage_add`` /
+    ``apply_pending``) come with the serving slice of the port.
+    """
+
+    def __init__(self, backend: str, metric: str, state):
+        self._backend = _get_backend(backend)
+        self._backend_name = backend
+        self._metric = C.validate_metric(metric)
+        self._state = state
+
+    @classmethod
+    def build(
+        cls,
+        gen: torch.Generator,
+        X: torch.Tensor,
+        config: ASHConfig,
+        *,
+        backend: str = "flat",
+        metric: str = "dot",
+        device="cuda",
+        **opts,
+    ) -> "AshIndex":
+        """Train (or reuse ``model=``), encode ``X`` and assemble the
+        index on ``device``.  ``opts``: ``keep_raw``, ``learned``,
+        ``model`` and any ``core.ash.train`` keyword."""
+        impl = _get_backend(backend)
+        C.validate_metric(metric)
+        state = impl.build(
+            gen, X, config, metric=metric, device=resolve_device(device),
+            **opts,
+        )
+        return cls(backend, metric, state)
+
+    @classmethod
+    def from_parts(
+        cls,
+        model: ASHModel,
+        payload: ASHPayload,
+        *,
+        backend: str = "flat",
+        metric: str = "dot",
+        raw: Optional[torch.Tensor] = None,
+    ) -> "AshIndex":
+        """Wrap an already-encoded (model, payload) pair (on their
+        device)."""
+        impl = _get_backend(backend)
+        C.validate_metric(metric)
+        return cls(backend, metric,
+                   impl.from_parts(model, payload, metric=metric, raw=raw))
+
+    def search(self, queries, k: int = 10, *, rerank: int = 0,
+               use_kernel: bool = True):
+        """Top-k search: (scores, ids), each (m, k), higher-is-better for
+        every metric; id -1 marks a missing candidate."""
+        return self._backend.search(
+            self._state, queries, k=k, rerank=rerank, use_kernel=use_kernel
+        )
+
+    def prepare(self, queries) -> QueryPrep:
+        """The per-query terms of Eq. (20) for :meth:`search_prepped`."""
+        return S.prepare_queries(self.model, queries)
+
+    def search_prepped(self, prep: QueryPrep, k: int = 10, *,
+                       rerank: int = 0, use_kernel: bool = True):
+        """:meth:`search` from precomputed query terms."""
+        return self._backend.search_prepped(
+            self._state, prep, k=k, rerank=rerank, use_kernel=use_kernel
+        )
+
+    def add(self, X_new) -> "AshIndex":
+        """Encode and ingest new vectors; ids continue past every id
+        ever assigned.  Returns self."""
+        self._state = self._backend.add(self._state, X_new)
+        return self
+
+    def delete(self, ids) -> int:
+        """Tombstone rows by user id; returns the rows newly removed
+        (unknown or already-deleted ids are ignored)."""
+        self._state, removed = self._backend.delete(self._state, ids)
+        return removed
+
+    def compact(self, max_dead_fraction: float = 0.0) -> "AshIndex":
+        """Evict tombstoned rows when the dead fraction exceeds
+        ``max_dead_fraction``; user ids stay stable.  Returns self."""
+        if self.dead_fraction > max_dead_fraction:
+            self._state = self._backend.compact(self._state)
+        return self
+
+    # -- persistence --------------------------------------------------
+
+    def save(self, path, *, extra_meta: Optional[dict] = None) -> None:
+        """Write ``arrays.npz`` + ``config.json`` under ``path/``
+        atomically, in the reference's format."""
+        p = pathlib.Path(path)
+        arrays, backend_meta = self._backend.to_arrays(self._state)
+        encoded, dtypes, checksums = {}, {}, {}
+        for name, t in arrays.items():
+            a, dtypes[name] = _encode_array(t)
+            if name == "payload.codes":  # the reference's uint32 words
+                a, dtypes[name] = a.view(np.uint32), "uint32"
+            encoded[name] = a
+            checksums[name] = zlib.crc32(
+                np.ascontiguousarray(encoded[name]).tobytes()
+            )
+        cfg = self.config
+        meta = {
+            "format_version": FORMAT_VERSION,
+            "backend": self._backend_name,
+            "metric": self._metric,
+            "config": {
+                "b": cfg.b, "d": cfg.d, "n_landmarks": cfg.n_landmarks,
+                "store_fp16": cfg.store_fp16,
+            },
+            "dtypes": dtypes,
+            "backend_meta": backend_meta,
+            "checksums": checksums,
+        }
+        if extra_meta:
+            meta.update(extra_meta)
+        if p.exists():
+            _save_over(p, encoded, meta)
+        else:
+            _save_fresh(p, encoded, meta)
+
+    @classmethod
+    def load(cls, path, *, device="cuda") -> "AshIndex":
+        """Inverse of :meth:`save` (either package's), onto ``device``;
+        search results equal the saved index's.  Integrity failures
+        raise :class:`CorruptIndexError`."""
+        dev = resolve_device(device)
+        p = pathlib.Path(path)
+        meta, encoded = _read_index_dir(p)
+        if "pending_add" in encoded:
+            raise NotImplementedError(
+                f"{p} holds rows staged by stage_add() and not yet "
+                "applied; staged adds come with the serving slice of the "
+                "port (ROADMAP queue 1 item 9) — apply_pending() and save "
+                "again with the reference package"
+            )
+        try:
+            arrays = {
+                name: _decode_array(a, meta["dtypes"][name], dev)
+                for name, a in encoded.items()
+            }
+        except (TypeError, ValueError, KeyError) as e:
+            raise CorruptIndexError(p, f"array decode failed: {e}") from e
+        config = ASHConfig(**meta["config"])
+        impl = _get_backend(meta["backend"])
+        state = impl.from_arrays(
+            arrays, meta["backend_meta"], config, meta["metric"]
+        )
+        return cls(meta["backend"], meta["metric"], state)
+
+    # -- introspection ------------------------------------------------
+
+    @property
+    def backend(self) -> str:
+        return self._backend_name
+
+    @property
+    def metric(self) -> str:
+        return self._metric
+
+    @property
+    def model(self) -> ASHModel:
+        return self._state.model
+
+    @property
+    def payload(self) -> ASHPayload:
+        return self._state.payload
+
+    @property
+    def stats(self) -> Optional[ASHStats]:
+        return self._state.stats
+
+    @property
+    def config(self) -> ASHConfig:
+        return self.model.config
+
+    @property
+    def n(self) -> int:
+        """Payload rows, including tombstones."""
+        return self.payload.n
+
+    @property
+    def n_dead(self) -> int:
+        live = self._state.live
+        return 0 if live is None else self.n - int(live.sum())
+
+    @property
+    def n_live(self) -> int:
+        return self.n - self.n_dead
+
+    @property
+    def dead_fraction(self) -> float:
+        return self.n_dead / max(1, self.n)
+
+    @property
+    def next_id(self) -> int:
+        """User id the next added row receives (never reused)."""
+        return self._backend.next_id_of(self._state)
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __repr__(self) -> str:
+        cfg = self.config
+        dead = f", dead={self.n_dead}" if self.n_dead else ""
+        return (
+            f"AshIndex(backend={self._backend_name!r}, "
+            f"metric={self._metric!r}, n={self.n}{dead}, b={cfg.b}, "
+            f"d={cfg.d}, C={cfg.n_landmarks}, "
+            f"payload={cfg.payload_bits()} bits/vec)"
+        )

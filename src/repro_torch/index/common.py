@@ -1,0 +1,308 @@
+"""Shared machinery of the index backends (dense half of
+``repro.index.common``).
+
+Every search lowers to a :class:`ScanPlan` and :func:`execute_plan`
+picks the route: the fused scan + selection kernel when the requested
+top-k (or rerank shortlist) fits ``FUSED_TOPK_MAX_K``, else the
+materializing kernel followed by a stable sort.  The two return
+identical results, so the routing boundary is invisible to callers.
+
+Score convention: higher is better for every metric (L2 scores are
+negated squared distances); missing candidates carry ``-inf`` and id
+-1.  Every selection orders ties by lowest id first, as the
+reference's ``lax.top_k`` does.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import scoring as S
+from repro_torch.core.types import ASHModel, ASHPayload, ASHStats, QueryPrep
+from repro_torch.kernels import ops as K
+from repro_torch.kernels.ref import stable_top_k
+
+NEG_INF = float("-inf")
+METRICS = ("dot", "l2", "cos")
+_EPS = 1e-12
+
+
+def validate_metric(metric: str) -> str:
+    if metric not in METRICS:
+        raise ValueError(
+            f"unknown metric {metric!r}; expected one of {METRICS}"
+        )
+    return metric
+
+
+def approx_scores(
+    model: ASHModel,
+    prep: QueryPrep,
+    payload: ASHPayload,
+    metric: str,
+    *,
+    use_kernel: bool = False,
+    stats: Optional[ASHStats] = None,
+) -> torch.Tensor:
+    """ASH scores of all payload rows, (m, n), higher-is-better.
+
+    use_kernel=False: the plain reference scorers of ``core.scoring``;
+    True: the materializing scan kernel with its metric epilogue
+    (the plain version on CPU tensors)."""
+    if not use_kernel:
+        if metric == "dot":
+            return S.score_dot(model, prep, payload)
+        if metric == "l2":
+            return -S.score_l2(model, prep, payload)
+        if metric == "cos":
+            return S.score_cosine(model, prep, payload)
+        raise ValueError(metric)
+    validate_metric(metric)
+    return K.ash_score(model, prep, payload, metric=metric, stats=stats)
+
+
+def approx_topk(
+    model: ASHModel,
+    prep: QueryPrep,
+    payload: ASHPayload,
+    metric: str,
+    k: int,
+    *,
+    stats: Optional[ASHStats] = None,
+    n_valid: Any = None,
+    row_valid: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused-selection top-k over all payload rows: (scores, rows).
+    Callers keep ``k <= fused_topk_limit()`` and ``k <= payload.n``."""
+    validate_metric(metric)
+    return K.ash_score_topk(
+        model, prep, payload, k, metric=metric, stats=stats,
+        n_valid=n_valid, row_valid=row_valid,
+    )
+
+
+def fused_topk_limit() -> int:
+    """Largest k the fused-selection route serves."""
+    return K.FUSED_TOPK_MAX_K
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """Declarative description of one dense top-k scan.
+
+    Every payload row is scored, optionally truncated by ``n_valid``
+    (rows at/beyond it score -inf) and filtered by ``row_valid`` ((n,)
+    bool; False rows are tombstones), both folded into the fused
+    kernel's runtime mask operand.  ``rerank > 0`` retrieves a
+    ``max(rerank, k)`` shortlist and re-ranks it with exact scores over
+    the ``raw`` vectors given to :func:`execute_plan`.  ``ids`` maps
+    payload rows to user ids.  ``use_kernel=False`` scores with the
+    plain reference scorers instead of the scan kernels.
+
+    Gathered plans (``rows``, IVF partial probes) and the int8 coarse
+    first pass (``coarse``/``shortlist``) are not ported yet and raise.
+    """
+
+    metric: str
+    k: int
+    rerank: int = 0
+    rows: Optional[torch.Tensor] = None
+    n_valid: Any = None
+    row_valid: Optional[torch.Tensor] = None
+    ids: Optional[torch.Tensor] = None
+    use_kernel: bool = True
+    coarse: Optional[str] = None
+    shortlist: Optional[int] = None
+
+
+def _map_ids(rows: torch.Tensor, ids: Optional[torch.Tensor]) -> torch.Tensor:
+    """Map payload rows to user ids, keeping the -1 sentinel."""
+    if ids is None:
+        return rows
+    return torch.where(rows < 0, -1, ids[rows.clamp(min=0).long()])
+
+
+def execute_plan(
+    model: ASHModel,
+    prep: QueryPrep,
+    payload: ASHPayload,
+    plan: ScanPlan,
+    *,
+    stats: Optional[ASHStats] = None,
+    raw: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run a :class:`ScanPlan`: (scores, ids), each (m, k)."""
+    validate_metric(plan.metric)
+    if plan.coarse is not None or plan.shortlist is not None:
+        raise NotImplementedError(
+            "the int8 coarse first pass (coarse=/shortlist=) is not "
+            "ported yet: ROADMAP queue 1 item 7 and kernels 5-6"
+        )
+    if plan.rows is not None:
+        raise NotImplementedError(
+            "gathered plans (rows=, IVF partial probes) are not ported "
+            "yet: ROADMAP queue 1 item 6 and kernels 3-4"
+        )
+    n = payload.n
+    cap = fused_topk_limit()
+    masked = plan.n_valid is not None or plan.row_valid is not None
+
+    def materialized():
+        s = approx_scores(
+            model, prep, payload, plan.metric,
+            use_kernel=plan.use_kernel, stats=stats,
+        )
+        if not masked:
+            return s
+        return K.mask_valid_rows(s, plan.n_valid, plan.row_valid)
+
+    def select(size):
+        if plan.use_kernel and size <= min(cap, n):
+            return approx_topk(
+                model, prep, payload, plan.metric, size, stats=stats,
+                n_valid=plan.n_valid, row_valid=plan.row_valid,
+            )
+        s, rows = stable_top_k(materialized(), size)
+        return s, rows.to(torch.int32)
+
+    if plan.rerank and raw is not None:
+        short_s, short_rows = select(min(max(plan.rerank, plan.k), n))
+        return exact_rerank(
+            prep, raw, short_s, short_rows, plan.metric, plan.k,
+            ids=plan.ids,
+        )
+    s, rows = select(plan.k)
+    if masked:
+        # -inf slots carry route-dependent ids under row masking (the
+        # fused kernel emits sentinels, the sort the masked rows);
+        # normalize both routes to -1
+        rows = torch.where(torch.isneginf(s), -1, rows)
+    return s, _map_ids(rows, plan.ids)
+
+
+def exact_scores(prep: QueryPrep, cand: torch.Tensor, metric: str):
+    """Metric-aware exact scores of raw candidates (m, R, D) -> (m, R),
+    higher-is-better; inner products by broadcast-multiply and reduce."""
+    ip = (prep.q[:, None, :] * cand).sum(dim=-1)
+    if metric == "dot":
+        return ip
+    if metric == "l2":
+        return -(
+            prep.q_sq_norm[:, None] - 2.0 * ip + (cand * cand).sum(dim=-1)
+        )
+    if metric == "cos":
+        q_norm = torch.sqrt(torch.clamp(prep.q_sq_norm, min=_EPS))[:, None]
+        c_norm = torch.clamp(torch.sqrt((cand * cand).sum(dim=-1)), min=_EPS)
+        return ip / (q_norm * c_norm)
+    raise ValueError(metric)
+
+
+def exact_rerank(
+    prep: QueryPrep,
+    raw: torch.Tensor,
+    shortlist_scores: torch.Tensor,
+    shortlist_rows: torch.Tensor,
+    metric: str,
+    k: int,
+    ids: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Re-rank a shortlist (m, R) with exact scores on the raw vectors;
+    entries without a valid candidate get (-inf, -1)."""
+    cand = raw[shortlist_rows.clamp(min=0).long()].to(torch.float32)
+    exact = exact_scores(prep, cand, metric)
+    exact = torch.where(torch.isneginf(shortlist_scores), NEG_INF, exact)
+    rs, ri = stable_top_k(exact, k)
+    rows_k = shortlist_rows.gather(1, ri)
+    out = rows_k if ids is None else ids[rows_k.clamp(min=0).long()]
+    return rs, torch.where(torch.isneginf(rs), -1, out).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Payload manipulation shared by backends
+# ---------------------------------------------------------------------------
+
+
+def gather_payload(payload: ASHPayload, rows: torch.Tensor) -> ASHPayload:
+    """Gather payload rows; -1 rows read row 0 (callers mask them)."""
+    safe = rows.clamp(min=0).long()
+    return ASHPayload(
+        b=payload.b, d=payload.d,
+        codes=payload.codes[safe], scale=payload.scale[safe],
+        offset=payload.offset[safe], cluster=payload.cluster[safe],
+    )
+
+
+def take_stats(stats: Optional[ASHStats], rows) -> Optional[ASHStats]:
+    """Gather stats rows (compaction keeps survivors' encode-time
+    statistics bit for bit)."""
+    if stats is None:
+        return None
+    rows = rows.long()
+    return ASHStats(
+        res_norm=stats.res_norm[rows], ip_x_mu=stats.ip_x_mu[rows],
+        x_sq=stats.x_sq[rows],
+    )
+
+
+def concat_stats(a: Optional[ASHStats], b: Optional[ASHStats]):
+    """Row-concatenate two stats blocks (None if either is missing)."""
+    if a is None or b is None:
+        return None
+    return ASHStats(
+        res_norm=torch.cat([a.res_norm, b.res_norm]),
+        ip_x_mu=torch.cat([a.ip_x_mu, b.ip_x_mu]),
+        x_sq=torch.cat([a.x_sq, b.x_sq]),
+    )
+
+
+def concat_payloads(a: ASHPayload, b: ASHPayload) -> ASHPayload:
+    """Row-concatenate two payloads encoded under the same model."""
+    if (a.b, a.d) != (b.b, b.d):
+        raise ValueError(
+            f"payload mismatch: (b={a.b}, d={a.d}) vs (b={b.b}, d={b.d})"
+        )
+    return ASHPayload(
+        b=a.b, d=a.d,
+        codes=torch.cat([a.codes, b.codes]),
+        scale=torch.cat([a.scale, b.scale]),
+        offset=torch.cat([a.offset, b.offset]),
+        cluster=torch.cat([a.cluster, b.cluster]),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Tombstone (delete) bookkeeping shared by backends
+# ---------------------------------------------------------------------------
+
+
+def effective_next_id(next_id, ids, n: int) -> int:
+    """The user id the next added row receives: ``next_id`` once
+    mutations set it, else ``n`` for identity ids, else max(ids) + 1.
+    Ids are never reused."""
+    if next_id is not None:
+        return int(next_id)
+    if ids is None or n == 0:
+        return int(n)
+    return int(ids.max()) + 1
+
+
+def mark_deleted(ids, live, del_ids, n: int) -> tuple[np.ndarray, int]:
+    """Tombstone payload rows by user id: (new live bitmap (n,) bool
+    numpy, rows newly removed).  Unknown or already-deleted ids are
+    ignored (FAISS ``remove_ids`` semantics)."""
+    del_ids = np.unique(np.asarray(del_ids).reshape(-1).astype(np.int64))
+    row_ids = (
+        np.arange(n, dtype=np.int64) if ids is None
+        else ids.cpu().numpy().astype(np.int64)
+    )
+    hit = np.isin(row_ids, del_ids)
+    if live is not None:
+        old = live.cpu().numpy().astype(bool)
+        hit &= old
+        new_live = old & ~hit
+    else:
+        new_live = ~hit
+    return new_live, int(hit.sum())
