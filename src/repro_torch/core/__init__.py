@@ -1,6 +1,7 @@
 """ASH core over torch tensors (counterpart of ``repro.core``)."""
 from repro_torch.core.types import (
-    ASHConfig, ASHModel, ASHPayload, ASHStats, QueryPrep,
+    ASHConfig, ASHModel, ASHPayload, ASHStats, CoarseCodes,
+    CoarseQueryPrep, QueryPrep,
 )
 from repro_torch.core import quantization
 from repro_torch.core import learning
@@ -8,7 +9,9 @@ from repro_torch.core import ash
 from repro_torch.core import scoring
 from repro_torch.core.ash import train, encode, decode, random_model
 from repro_torch.core.scoring import (
+    coarse_codes,
     payload_stats,
+    prepare_coarse_queries,
     prepare_queries,
     score_dot,
     score_l2,
@@ -16,9 +19,11 @@ from repro_torch.core.scoring import (
 )
 
 __all__ = [
-    "ASHConfig", "ASHModel", "ASHPayload", "ASHStats", "QueryPrep",
+    "ASHConfig", "ASHModel", "ASHPayload", "ASHStats", "CoarseCodes",
+    "CoarseQueryPrep", "QueryPrep",
     "quantization", "learning", "ash", "scoring",
     "train", "encode", "decode", "random_model",
-    "payload_stats", "prepare_queries", "score_dot", "score_l2",
+    "coarse_codes", "payload_stats", "prepare_coarse_queries",
+    "prepare_queries", "score_dot", "score_l2",
     "score_cosine",
 ]

@@ -10,7 +10,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import quantization as Q
-from repro_torch.core.types import ASHModel, ASHPayload, ASHStats, QueryPrep
+from repro_torch.core.types import (
+    ASHModel, ASHPayload, ASHStats, CoarseCodes, CoarseQueryPrep, QueryPrep,
+)
 from repro_torch.device import full_fp32
 
 _EPS = 1e-12
@@ -74,6 +76,51 @@ def payload_stats(model: ASHModel, payload: ASHPayload) -> ASHStats:
         res_norm=res_norm.to(torch.float32),
         ip_x_mu=ip_x_mu.to(torch.float32),
         x_sq=x_sq.to(torch.float32),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Symmetric int8 coarse pass (query quantizer + coarse operands)
+# ---------------------------------------------------------------------------
+
+# int8 query grid half-width; with |code| <= 255 (b = 8) every coarse
+# partial sum stays below 2^24 for d_pad <= 512, so the integer
+# accumulation is exact in int32 and in fp32 alike.
+COARSE_QMAX = 127
+_MEAN_CHUNK = 1 << 18  # rows unpacked at a time for the coarse mean
+
+
+def coarse_codes(payload: ASHPayload) -> CoarseCodes:
+    """The :class:`CoarseCodes` of a payload: the scale-weighted mean of
+    the dequantized rows, unpacked in chunks of rows."""
+    full_fp32()
+    d_pad = payload.codes.shape[1] * Q.codes_per_word(payload.b)
+    scale = payload.scale.to(torch.float32)
+    total = torch.zeros(d_pad, dtype=torch.float32, device=scale.device)
+    for r0 in range(0, payload.n, _MEAN_CHUNK):
+        V = Q.unpack_codes(
+            payload.codes[r0:r0 + _MEAN_CHUNK], d_pad, payload.b
+        ).to(torch.float32)
+        total += (scale[r0:r0 + _MEAN_CHUNK, None] * V).sum(dim=0)
+    return CoarseCodes(mean=total / max(payload.n, 1))
+
+
+def prepare_coarse_queries(prep: QueryPrep, mean: torch.Tensor
+                           ) -> CoarseQueryPrep:
+    """Symmetric int8 quantization of the projected queries: per-query
+    scale ``s = max|q_proj| / 127`` (eps-guarded), codes
+    ``round(q_proj / s)`` (half to even, as ``jnp.round``) clipped to
+    [-127, 127], and ``q_corr = <q_proj - s * q_int8, mean[:d]>``."""
+    full_fp32()
+    qp = prep.q_proj.to(torch.float32)
+    s = torch.clamp(qp.abs().amax(dim=-1), min=_EPS) / COARSE_QMAX
+    qi = torch.clamp(torch.round(qp / s[..., None]), -COARSE_QMAX,
+                     COARSE_QMAX)
+    resid = qp - s[..., None] * qi
+    return CoarseQueryPrep(
+        q_int8=qi.to(torch.int8),
+        q_scale=s,
+        q_corr=resid @ mean.to(torch.float32)[: qp.shape[-1]],
     )
 
 

@@ -169,3 +169,33 @@ class QueryPrep:
     q_proj: torch.Tensor  # (m, d)
     ip_q_landmarks: torch.Tensor  # (m, C)
     q_sq_norm: torch.Tensor  # (m,)
+
+
+@dataclasses.dataclass(frozen=True)
+class CoarseCodes:
+    """What the symmetric int8 coarse scan needs of a payload beyond its
+    packed codes: ``mean``, the scale-weighted corpus mean of the
+    dequantized rows, ``mean_j(SCALE_j * v_j)`` (d_pad,) f32, the
+    operand of the query correction ``q_corr`` that makes coarse scores
+    corpus-mean-unbiased estimates of the asymmetric score.
+
+    The reference also caches the (n, d_pad) fp32 grid values here; the
+    port does not (512 MB at n = 10^6): the coarse kernels unpack the
+    packed words, and the plain versions unpack the rows they read,
+    which gives the same integers.  Derived from the payload, never
+    persisted.
+    """
+
+    mean: torch.Tensor  # (d_pad,) f32
+
+
+@dataclasses.dataclass(frozen=True)
+class CoarseQueryPrep:
+    """Per-query int8 symmetric quantization of ``QueryPrep.q_proj``:
+    q_int8 = round(q_proj / q_scale) with q_scale = max|q_proj| / 127,
+    and the residual correction q_corr = <q_proj - q_scale * q_int8,
+    mean> folded into the Eq. (20) base score."""
+
+    q_int8: torch.Tensor  # (m, d) int8
+    q_scale: torch.Tensor  # (m,) f32
+    q_corr: torch.Tensor  # (m,) f32

@@ -1,10 +1,13 @@
-"""``AshIndex``: one build/search/persist surface (flat backend).
+"""``AshIndex``: one build/search/persist surface (flat and IVF backends).
 
 Counterpart of ``repro.index.api``::
 
     index = AshIndex.build(gen, X, ASHConfig(b=2, d=64, n_landmarks=64),
                            metric="l2", keep_raw=True)   # on "cuda"
     scores, ids = index.search(queries, k=10, rerank=100)
+    scores, ids = index.search(queries, k=10, coarse="int8", shortlist=64)
+    ivf = AshIndex.build(gen, X, cfg, backend="ivf")     # nlist = C
+    scores, ids = ivf.search(queries, k=10, nprobe=8)
     index.add(X_new); index.delete([3, 17]); index.compact()
     index.save("/tmp/idx")
     index = AshIndex.load("/tmp/idx")
@@ -35,6 +38,7 @@ from repro_torch.core.types import (
 from repro_torch.device import resolve_device
 from repro_torch.index import common as C
 from repro_torch.index import flat as F
+from repro_torch.index import ivf as IV
 
 FORMAT_VERSION = 1
 
@@ -68,7 +72,7 @@ def _get_backend(name: str):
     except KeyError:
         raise ValueError(
             f"unknown backend {name!r}; available: {available_backends()}"
-            " (ivf, sharded and tiered_ivf are not ported yet)"
+            " (sharded and tiered_ivf are not ported yet)"
         ) from None
 
 
@@ -218,6 +222,41 @@ def _read_index_dir(p: pathlib.Path):
 # ---------------------------------------------------------------------------
 
 
+def _common_arrays(state) -> dict:
+    """Model, payload and stats arrays under the reference's names."""
+    arrays = {
+        **{f"model.{f}": getattr(state.model, f)
+           for f in ASHModel.ARRAY_FIELDS},
+        **{f"payload.{f}": getattr(state.payload, f)
+           for f in ASHPayload.ARRAY_FIELDS},
+    }
+    if state.stats is not None:
+        arrays.update({f"stats.{f}": getattr(state.stats, f)
+                       for f in _STATS_FIELDS})
+    return arrays
+
+
+def _common_from_arrays(arrays, config):
+    """(model, payload, stats) of :func:`_common_arrays`; stats are
+    recomputed when the save has none."""
+    model = ASHModel(config=config, **{
+        f: arrays[f"model.{f}"].to(torch.float32)
+        for f in ASHModel.ARRAY_FIELDS
+    })
+    payload = ASHPayload(b=config.b, d=config.d, **{
+        f: arrays[f"payload.{f}"] for f in ASHPayload.ARRAY_FIELDS
+    })
+    if all(f"stats.{f}" in arrays for f in _STATS_FIELDS):
+        stats = ASHStats(**{f: arrays[f"stats.{f}"] for f in _STATS_FIELDS})
+    else:
+        stats = S.payload_stats(model, payload)
+    return model, payload, stats
+
+
+def _next_id_meta(state) -> dict:
+    return {} if state.next_id is None else {"next_id": int(state.next_id)}
+
+
 @register_backend
 class FlatBackend:
     """Exhaustive scan over the whole payload."""
@@ -225,17 +264,26 @@ class FlatBackend:
     name = "flat"
 
     build = staticmethod(F._build)
-    search = staticmethod(F._search)
-    search_prepped = staticmethod(F._search_prepped)
     add = staticmethod(F._add)
     delete = staticmethod(F._delete)
     compact = staticmethod(F._compact)
+
+    @staticmethod
+    def search(state, queries, *, k, nprobe=None, rerank=0, **opts):
+        del nprobe  # no list routing in a flat scan
+        return F._search(state, queries, k=k, rerank=rerank, **opts)
+
+    @staticmethod
+    def search_prepped(state, prep, *, k, nprobe=None, rerank=0, **opts):
+        del nprobe
+        return F._search_prepped(state, prep, k=k, rerank=rerank, **opts)
 
     @staticmethod
     def from_parts(model, payload, *, metric, raw=None):
         return F.FlatIndex(
             metric=metric, model=model, payload=payload, raw=raw,
             stats=S.payload_stats(model, payload),
+            coarse=S.coarse_codes(payload),
         )
 
     @staticmethod
@@ -244,40 +292,85 @@ class FlatBackend:
 
     @staticmethod
     def to_arrays(state):
-        arrays = {
-            **{f"model.{f}": getattr(state.model, f)
-               for f in ASHModel.ARRAY_FIELDS},
-            **{f"payload.{f}": getattr(state.payload, f)
-               for f in ASHPayload.ARRAY_FIELDS},
-        }
-        if state.stats is not None:
-            arrays.update({f"stats.{f}": getattr(state.stats, f)
-                           for f in _STATS_FIELDS})
+        arrays = _common_arrays(state)
         for name in ("raw", "ids", "live"):
             if getattr(state, name) is not None:
                 arrays[name] = getattr(state, name)
-        meta = {}
-        if state.next_id is not None:
-            meta["next_id"] = int(state.next_id)
-        return arrays, meta
+        return arrays, _next_id_meta(state)
 
     @staticmethod
     def from_arrays(arrays, meta, config, metric):
-        model = ASHModel(config=config, **{
-            f: arrays[f"model.{f}"].to(torch.float32)
-            for f in ASHModel.ARRAY_FIELDS
-        })
-        payload = ASHPayload(b=config.b, d=config.d, **{
-            f: arrays[f"payload.{f}"] for f in ASHPayload.ARRAY_FIELDS
-        })
-        if all(f"stats.{f}" in arrays for f in _STATS_FIELDS):
-            stats = ASHStats(**{f: arrays[f"stats.{f}"] for f in _STATS_FIELDS})
-        else:
-            stats = S.payload_stats(model, payload)
+        model, payload, stats = _common_from_arrays(arrays, config)
         return F.FlatIndex(
             metric=metric, model=model, payload=payload,
             raw=arrays.get("raw"), stats=stats, ids=arrays.get("ids"),
             live=arrays.get("live"), next_id=meta.get("next_id"),
+            coarse=S.coarse_codes(payload),
+        )
+
+
+@register_backend
+class IVFBackend:
+    """Inverted-file routing over the landmark coarse quantizer."""
+
+    name = "ivf"
+    default_nprobe = 8
+
+    build = staticmethod(IV._build)
+    add = staticmethod(IV._add)
+    delete = staticmethod(IV._delete)
+    compact = staticmethod(IV._compact)
+
+    @staticmethod
+    def from_parts(model, payload, *, metric, raw=None):
+        ids = torch.arange(payload.n, dtype=torch.int32,
+                           device=payload.codes.device)
+        return IV._assemble(metric, model, payload, ids, raw)
+
+    @staticmethod
+    def resolve_nprobe(state, nprobe):
+        """Effective nprobe: the default applied, clamped to the list
+        count."""
+        if nprobe is None:
+            nprobe = IVFBackend.default_nprobe
+        return min(nprobe, state.invlists.shape[0])
+
+    @staticmethod
+    def search(state, queries, *, k, nprobe=None, rerank=0, **opts):
+        nprobe = IVFBackend.resolve_nprobe(state, nprobe)
+        return IV._search(state, queries, k=k, nprobe=nprobe,
+                          rerank=rerank, **opts)
+
+    @staticmethod
+    def search_prepped(state, prep, *, k, nprobe=None, rerank=0, **opts):
+        nprobe = IVFBackend.resolve_nprobe(state, nprobe)
+        return IV._search_prepped(state, prep, k=k, nprobe=nprobe,
+                                  rerank=rerank, **opts)
+
+    @staticmethod
+    def next_id_of(state):
+        return C.effective_next_id(state.next_id, state.ids, state.payload.n)
+
+    @staticmethod
+    def to_arrays(state):
+        arrays = {**_common_arrays(state), "ids": state.ids,
+                  "invlists": state.invlists}
+        for name in ("raw", "live"):
+            if getattr(state, name) is not None:
+                arrays[name] = getattr(state, name)
+        return arrays, {"max_list_len": state.max_list_len,
+                        **_next_id_meta(state)}
+
+    @staticmethod
+    def from_arrays(arrays, meta, config, metric):
+        model, payload, stats = _common_from_arrays(arrays, config)
+        return IV.IVFIndex(
+            metric=metric, max_list_len=int(meta["max_list_len"]),
+            model=model, payload=payload, ids=arrays["ids"],
+            invlists=arrays["invlists"], raw=arrays.get("raw"),
+            stats=stats, live=arrays.get("live"),
+            next_id=meta.get("next_id"),
+            coarse=S.coarse_codes(payload),
         )
 
 
@@ -341,12 +434,21 @@ class AshIndex:
         return cls(backend, metric,
                    impl.from_parts(model, payload, metric=metric, raw=raw))
 
-    def search(self, queries, k: int = 10, *, rerank: int = 0,
-               use_kernel: bool = True):
+    def search(self, queries, k: int = 10, *, nprobe: Optional[int] = None,
+               rerank: int = 0, use_kernel: bool = True,
+               coarse: Optional[str] = None,
+               shortlist: Optional[int] = None):
         """Top-k search: (scores, ids), each (m, k), higher-is-better for
-        every metric; id -1 marks a missing candidate."""
+        every metric; id -1 marks a missing candidate.
+
+        ``nprobe`` (IVF; default 8) lists are probed per query.
+        ``coarse="int8"`` runs the symmetric int8 first pass and
+        rescores its top ``shortlist`` rows asymmetrically; it equals
+        ``coarse=None`` whenever the shortlist covers the scanned rows.
+        ``use_kernel=False`` runs the plain versions of the kernels."""
         return self._backend.search(
-            self._state, queries, k=k, rerank=rerank, use_kernel=use_kernel
+            self._state, queries, k=k, nprobe=nprobe, rerank=rerank,
+            use_kernel=use_kernel, coarse=coarse, shortlist=shortlist,
         )
 
     def prepare(self, queries) -> QueryPrep:
@@ -354,10 +456,15 @@ class AshIndex:
         return S.prepare_queries(self.model, queries)
 
     def search_prepped(self, prep: QueryPrep, k: int = 10, *,
-                       rerank: int = 0, use_kernel: bool = True):
-        """:meth:`search` from precomputed query terms."""
+                       nprobe: Optional[int] = None, rerank: int = 0,
+                       use_kernel: bool = True,
+                       coarse: Optional[str] = None,
+                       shortlist: Optional[int] = None):
+        """:meth:`search` from precomputed query terms; row i of the
+        result depends only on row i of ``prep``."""
         return self._backend.search_prepped(
-            self._state, prep, k=k, rerank=rerank, use_kernel=use_kernel
+            self._state, prep, k=k, nprobe=nprobe, rerank=rerank,
+            use_kernel=use_kernel, coarse=coarse, shortlist=shortlist,
         )
 
     def add(self, X_new) -> "AshIndex":

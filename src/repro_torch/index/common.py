@@ -1,16 +1,26 @@
-"""Shared machinery of the index backends (dense half of
+"""Shared machinery of the index backends (counterpart of
 ``repro.index.common``).
 
 Every search lowers to a :class:`ScanPlan` and :func:`execute_plan`
-picks the route: the fused scan + selection kernel when the requested
-top-k (or rerank shortlist) fits ``FUSED_TOPK_MAX_K``, else the
-materializing kernel followed by a stable sort.  The two return
-identical results, so the routing boundary is invisible to callers.
+picks the route:
+
+* dense plans (flat, IVF full probe): the fused scan + selection
+  kernel when the requested top-k (or rerank shortlist) fits
+  ``FUSED_TOPK_MAX_K``, else the materializing kernel and a stable
+  sort;
+* gathered plans (IVF partial probes, ``rows=``): the fused gathered
+  kernel, or the materializing gathered kernel and a stable sort,
+  at the same boundary;
+* ``coarse="int8"`` puts the symmetric int8 coarse scan first and
+  refines its top-``shortlist`` rows with the gathered kernels.
+
+The fused and materializing routes return identical results, so the
+routing boundary is invisible to callers.
 
 Score convention: higher is better for every metric (L2 scores are
 negated squared distances); missing candidates carry ``-inf`` and id
--1.  Every selection orders ties by lowest id first, as the
-reference's ``lax.top_k`` does.
+-1.  Every selection orders ties by lowest id (or candidate position)
+first, as the reference's ``lax.top_k`` does.
 """
 from __future__ import annotations
 
@@ -21,12 +31,15 @@ import numpy as np
 import torch
 
 from repro_torch.core import scoring as S
-from repro_torch.core.types import ASHModel, ASHPayload, ASHStats, QueryPrep
+from repro_torch.core.types import (
+    ASHModel, ASHPayload, ASHStats, CoarseCodes, QueryPrep,
+)
 from repro_torch.kernels import ops as K
 from repro_torch.kernels.ref import stable_top_k
 
 NEG_INF = float("-inf")
 METRICS = ("dot", "l2", "cos")
+COARSE_MODES = ("int8",)
 _EPS = 1e-12
 
 
@@ -89,21 +102,42 @@ def fused_topk_limit() -> int:
     return K.FUSED_TOPK_MAX_K
 
 
+def default_shortlist() -> int:
+    """Default coarse-shortlist size L."""
+    return K.DEFAULT_SHORTLIST
+
+
 @dataclasses.dataclass(frozen=True)
 class ScanPlan:
-    """Declarative description of one dense top-k scan.
+    """Declarative description of one top-k scan.
 
-    Every payload row is scored, optionally truncated by ``n_valid``
-    (rows at/beyond it score -inf) and filtered by ``row_valid`` ((n,)
-    bool; False rows are tombstones), both folded into the fused
-    kernel's runtime mask operand.  ``rerank > 0`` retrieves a
+    WHAT to score:
+      * dense (``rows is None``): every payload row, optionally
+        truncated by ``n_valid`` (rows at/beyond it score -inf) and
+        filtered by ``row_valid`` ((n,) bool; False rows are
+        tombstones), both folded into the fused kernels' runtime mask
+        operand;
+      * gathered (``rows`` = (m, R) int32): query i scores its own
+        candidate rows ``rows[i]`` (IVF partial probes); pad entries
+        carry id -1 and score -inf.  Tombstones are dropped from the
+        table (mapped to -1) BEFORE planning: ``row_valid`` or
+        ``n_valid`` on a gathered plan is an error.
+
+    HOW to select: top-``k`` per query; ``rerank > 0`` retrieves a
     ``max(rerank, k)`` shortlist and re-ranks it with exact scores over
     the ``raw`` vectors given to :func:`execute_plan`.  ``ids`` maps
     payload rows to user ids.  ``use_kernel=False`` scores with the
-    plain reference scorers instead of the scan kernels.
+    plain versions instead of the scan kernels (the reference's
+    ``use_pallas=False``).
 
-    Gathered plans (``rows``, IVF partial probes) and the int8 coarse
-    first pass (``coarse``/``shortlist``) are not ported yet and raise.
+    FIRST PASS: ``coarse="int8"`` runs the symmetric int8 coarse scan
+    first and rescores only its top ``shortlist`` (L) rows
+    asymmetrically; ``shortlist=None`` takes :func:`default_shortlist`,
+    raised to the refine depth.  Coarse search changes results by
+    design, except when L covers every candidate (L >= n dense, L >= R
+    gathered): the coarse stage is then skipped and results equal the
+    plain asymmetric plan's.  ``shortlist`` without ``coarse`` is an
+    error, as is an unknown coarse mode.
     """
 
     metric: str
@@ -133,22 +167,79 @@ def execute_plan(
     *,
     stats: Optional[ASHStats] = None,
     raw: Optional[torch.Tensor] = None,
+    coarse_cache: Optional[CoarseCodes] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run a :class:`ScanPlan`: (scores, ids), each (m, k)."""
+    """Run a :class:`ScanPlan`: (scores, ids), each (m, k).
+
+    ``coarse_cache`` is the backend's :class:`CoarseCodes` for coarse
+    plans; when absent it is rebuilt per call (one database unpack)."""
     validate_metric(plan.metric)
-    if plan.coarse is not None or plan.shortlist is not None:
-        raise NotImplementedError(
-            "the int8 coarse first pass (coarse=/shortlist=) is not "
-            "ported yet: ROADMAP queue 1 item 7 and kernels 5-6"
+    if plan.coarse is not None and plan.coarse not in COARSE_MODES:
+        raise ValueError(
+            f"unknown coarse mode {plan.coarse!r}; expected one of "
+            f"{COARSE_MODES} (or None)"
         )
-    if plan.rows is not None:
-        raise NotImplementedError(
-            "gathered plans (rows=, IVF partial probes) are not ported "
-            "yet: ROADMAP queue 1 item 6 and kernels 3-4"
+    if plan.shortlist is not None and plan.coarse is None:
+        raise ValueError(
+            "shortlist= sets the coarse first-pass size and requires "
+            "coarse='int8'"
         )
+    if plan.rows is None:
+        return _execute_dense(model, prep, payload, plan, stats=stats,
+                              raw=raw, coarse_cache=coarse_cache)
+    if plan.n_valid is not None or plan.row_valid is not None:
+        raise ValueError(
+            "n_valid/row_valid apply to dense plans only; gathered "
+            "plans mask by pad id (drop tombstoned rows to -1 in "
+            "`rows` before planning)"
+        )
+    return _execute_gather(model, prep, payload, plan, stats=stats,
+                           raw=raw, coarse_cache=coarse_cache)
+
+
+def _coarse_depth(plan: ScanPlan, n_cand: int, want_rerank: bool):
+    """(refine_k, L) of a coarse plan over ``n_cand`` candidates: the
+    refine returns the rerank shortlist (or k), and L is raised to it."""
+    refine_k = (
+        min(max(plan.rerank, plan.k), n_cand) if want_rerank else plan.k
+    )
+    return refine_k, max(plan.shortlist or default_shortlist(), refine_k)
+
+
+def _finish_refine(prep, raw, ss, srows, plan, want_rerank, *, dense):
+    """Tail of both coarse routes: exact rerank of the refined
+    shortlist, or its first k mapped to user ids (the dense route also
+    maps -inf slots to -1, as the reference does)."""
+    if want_rerank:
+        return exact_rerank(prep, raw, ss, srows, plan.metric, plan.k,
+                            ids=plan.ids)
+    ss, srows = ss[:, :plan.k], srows[:, :plan.k]
+    if dense:
+        srows = torch.where(torch.isneginf(ss), -1, srows)
+    return ss, _map_ids(srows, plan.ids)
+
+
+def _execute_dense(model, prep, payload, plan, *, stats, raw,
+                   coarse_cache=None):
+    """Dense-scan lowering (flat, IVF full probe)."""
     n = payload.n
     cap = fused_topk_limit()
     masked = plan.n_valid is not None or plan.row_valid is not None
+    want_rerank = bool(plan.rerank) and raw is not None
+
+    if plan.coarse is not None:
+        refine_k, L = _coarse_depth(plan, n, want_rerank)
+        if L < n:
+            ss, srows = K.coarse_refine_topk(
+                model, prep, payload, refine_k, shortlist=L,
+                metric=plan.metric, stats=stats, coarse=coarse_cache,
+                n_valid=plan.n_valid, row_valid=plan.row_valid,
+                use_kernel=plan.use_kernel,
+            )
+            return _finish_refine(prep, raw, ss, srows, plan, want_rerank,
+                                  dense=True)
+        # L >= n: the shortlist covers every row, so the coarse pass
+        # cannot change the candidate set; the asymmetric plan runs as is
 
     def materialized():
         s = approx_scores(
@@ -168,7 +259,7 @@ def execute_plan(
         s, rows = stable_top_k(materialized(), size)
         return s, rows.to(torch.int32)
 
-    if plan.rerank and raw is not None:
+    if want_rerank:
         short_s, short_rows = select(min(max(plan.rerank, plan.k), n))
         return exact_rerank(
             prep, raw, short_s, short_rows, plan.metric, plan.k,
@@ -181,6 +272,47 @@ def execute_plan(
         # normalize both routes to -1
         rows = torch.where(torch.isneginf(s), -1, rows)
     return s, _map_ids(rows, plan.ids)
+
+
+def _execute_gather(model, prep, payload, plan, *, stats, raw,
+                    coarse_cache=None):
+    """Gathered-candidate lowering (IVF partial probes)."""
+    rows = plan.rows.to(torch.int32).contiguous()
+    R = rows.shape[1]
+    cap = fused_topk_limit()
+    want_rerank = bool(plan.rerank) and raw is not None
+
+    if plan.coarse is not None:
+        refine_k, L = _coarse_depth(plan, R, want_rerank)
+        if L < R:
+            ss, srows = K.coarse_refine_gather_topk(
+                model, prep, payload, rows, refine_k, shortlist=L,
+                metric=plan.metric, stats=stats, coarse=coarse_cache,
+                use_kernel=plan.use_kernel,
+            )
+            return _finish_refine(prep, raw, ss, srows, plan, want_rerank,
+                                  dense=False)
+        # L >= R: the shortlist covers the whole candidate table
+
+    def shortlist(size):
+        if plan.use_kernel and size <= cap:
+            return K.ash_score_gather_topk(
+                model, prep, payload, rows, size, metric=plan.metric,
+                stats=stats,
+            )
+        sc = K.ash_score_gather(
+            model, prep, payload, rows, metric=plan.metric, stats=stats,
+            use_kernel=plan.use_kernel,
+        )
+        s, pos = stable_top_k(sc, size)
+        return s, rows.gather(1, pos).to(torch.int32)
+
+    if want_rerank:
+        ss, srows = shortlist(min(max(plan.rerank, plan.k), R))
+        return exact_rerank(prep, raw, ss, srows, plan.metric, plan.k,
+                            ids=plan.ids)
+    s, rows_out = shortlist(plan.k)
+    return s, _map_ids(rows_out, plan.ids)
 
 
 def exact_scores(prep: QueryPrep, cand: torch.Tensor, metric: str):

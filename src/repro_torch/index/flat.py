@@ -3,9 +3,10 @@
 Counterpart of ``repro.index.flat``.  Entry point is
 ``repro_torch.index.AshIndex`` with ``backend="flat"``.  Every metric
 scores through the scan kernels; the route (fused selection, or
-materialize and sort) is picked by ``common.execute_plan``.  Deletes
-tombstone rows in a validity bitmap that reaches the fused kernel as
-its runtime mask operand; ``_compact`` evicts them.
+materialize and sort, optionally behind the int8 coarse first pass) is
+picked by ``common.execute_plan``.  Deletes tombstone rows in a
+validity bitmap that reaches the fused kernels as their runtime mask
+operand; ``_compact`` evicts them.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 from repro_torch.core import ash as A
 from repro_torch.core import scoring as S
 from repro_torch.core.types import (
-    ASHConfig, ASHModel, ASHPayload, ASHStats, QueryPrep,
+    ASHConfig, ASHModel, ASHPayload, ASHStats, CoarseCodes, QueryPrep,
 )
 from repro_torch.device import resolve_device
 from repro_torch.index import common as C
@@ -39,6 +40,10 @@ class FlatIndex:
     live: Optional[torch.Tensor] = None
     # id of the next added row once mutations set it (None = derived)
     next_id: Optional[int] = None
+    # operands of the int8 coarse first pass (the scale-weighted code
+    # mean; no value matrix): derived from the payload at build / add /
+    # compact / load, never persisted
+    coarse: Optional[CoarseCodes] = None
 
 
 def _build(
@@ -68,6 +73,7 @@ def _build(
         metric=metric, model=model, payload=payload,
         raw=X.to(torch.bfloat16) if keep_raw else None,
         stats=S.payload_stats(model, payload),
+        coarse=S.coarse_codes(payload),
     )
 
 
@@ -77,25 +83,32 @@ def _search_prepped(
     k: int = 10,
     rerank: int = 0,
     use_kernel: bool = True,
+    coarse: Optional[str] = None,
+    shortlist: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k search from precomputed query projections: (scores, ids),
     each (m, k).  rerank > 0 re-ranks a shortlist of that size with
-    exact scores on the bf16 raw vectors (requires keep_raw)."""
+    exact scores on the bf16 raw vectors (requires keep_raw);
+    ``coarse="int8"`` puts the coarse first pass of ``shortlist`` rows
+    ahead (see ``common.ScanPlan``)."""
     plan = C.ScanPlan(
         metric=index.metric, k=k, rerank=rerank, row_valid=index.live,
-        ids=index.ids, use_kernel=use_kernel,
+        ids=index.ids, use_kernel=use_kernel, coarse=coarse,
+        shortlist=shortlist,
     )
     return C.execute_plan(
         index.model, prep, index.payload, plan,
-        stats=index.stats, raw=index.raw,
+        stats=index.stats, raw=index.raw, coarse_cache=index.coarse,
     )
 
 
-def _search(index: FlatIndex, queries, k=10, rerank=0, use_kernel=True):
+def _search(index: FlatIndex, queries, k=10, rerank=0, use_kernel=True,
+            coarse=None, shortlist=None):
     """``prepare_queries`` then :func:`_search_prepped`."""
     prep = S.prepare_queries(index.model, queries)
     return _search_prepped(
-        index, prep, k=k, rerank=rerank, use_kernel=use_kernel
+        index, prep, k=k, rerank=rerank, use_kernel=use_kernel,
+        coarse=coarse, shortlist=shortlist,
     )
 
 
@@ -118,10 +131,11 @@ def _add(index: FlatIndex, X_new: torch.Tensor) -> FlatIndex:
     raw = index.raw
     if raw is not None:
         raw = torch.cat([raw, X_new.to(torch.bfloat16)])
+    payload = C.concat_payloads(index.payload, payload_new)
     return FlatIndex(
         metric=index.metric,
         model=index.model,
-        payload=C.concat_payloads(index.payload, payload_new),
+        payload=payload,
         raw=raw,
         stats=C.concat_stats(
             index.stats, S.payload_stats(index.model, payload_new)
@@ -129,6 +143,7 @@ def _add(index: FlatIndex, X_new: torch.Tensor) -> FlatIndex:
         ids=ids,
         live=live,
         next_id=None if index.next_id is None else nid + n_new,
+        coarse=S.coarse_codes(payload),
     )
 
 
@@ -161,13 +176,15 @@ def _compact(index: FlatIndex) -> FlatIndex:
         np.nonzero(live_np)[0].astype(np.int32), device=index.model.device
     )
     ids = keep if index.ids is None else index.ids[keep.long()]
+    payload = C.gather_payload(index.payload, keep)
     return FlatIndex(
         metric=index.metric,
         model=index.model,
-        payload=C.gather_payload(index.payload, keep),
+        payload=payload,
         raw=None if index.raw is None else index.raw[keep.long()],
         stats=C.take_stats(index.stats, keep),
         ids=ids.to(torch.int32),
         live=None,
         next_id=nid,
+        coarse=S.coarse_codes(payload),
     )

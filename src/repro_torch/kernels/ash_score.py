@@ -1,16 +1,29 @@
-"""Wrappers of the dense ASH scan kernels (``csrc/ash_score.cu``).
+"""Wrappers of the ASH scan kernels (``csrc/ash_{score,gather,coarse}.cu``).
 
-``ash_score_cuda`` replaces ``repro.kernels.ash_score.ash_score_pallas``
-and ``ash_score_topk_cuda`` replaces ``ash_score_topk_pallas``.  For a
-CUDA tensor a wrapper launches its kernel on the current stream or
-raises; for a CPU tensor it runs the kernel's plain PyTorch version
+Each wrapper replaces one function of ``repro.kernels.ash_score``:
+
+=============================  ===============================  ==========
+wrapper                        replaces                         source
+=============================  ===============================  ==========
+``ash_score_cuda``             ``ash_score_pallas``             ash_score
+``ash_score_topk_cuda``        ``ash_score_topk_pallas``        ash_score
+``ash_score_gather_cuda``      ``ash_score_gather_pallas``      ash_gather
+``ash_score_gather_topk_cuda`` ``ash_score_gather_topk_pallas`` ash_gather
+``ash_score_coarse_cuda``      ``ash_score_coarse_pallas``      ash_coarse
+``ash_score_coarse_topk_cuda`` ``ash_score_coarse_topk_pallas`` ash_coarse
+=============================  ===============================  ==========
+
+For a CUDA tensor a wrapper launches its kernel on the current stream
+or raises; for a CPU tensor it runs the kernel's plain PyTorch version
 from ``repro_torch.kernels.ref``.  ``launch_counts`` counts launches,
 one per kernel launch and nowhere else, so a run can show which
 kernels its main path went through.
 
-Bound and design notes are in the CUDA source.  The fused kernel's
-per-tile candidates are merged here by two stable sorts (by id, then by
-score), which reproduces the reference's two-key ``lax.sort``.
+Bound and design notes are in the CUDA sources.  The fused kernels'
+per-tile candidates are merged here by two stable sorts (by id or
+candidate position, then by score), which reproduces the reference's
+two-key ``lax.sort``; the gathered selection then maps positions back
+through the candidate rows.
 """
 from __future__ import annotations
 
@@ -22,11 +35,25 @@ from repro_torch.kernels import _build, ref
 
 _METRIC_CODE = {"dot": 0, "l2": 1, "cos": 2}  # the kernels' METRIC_* enum
 
-launch_counts = {"ash_score": 0, "ash_score_topk": 0}
+launch_counts = {
+    "ash_score": 0, "ash_score_topk": 0,
+    "ash_score_gather": 0, "ash_score_gather_topk": 0,
+    "ash_score_coarse": 0, "ash_score_coarse_topk": 0,
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_lib = None
+# C entry points per source: {function: (pointer args, int args)}; every
+# function ends with the stream pointer and returns a cudaError code
+_ENTRY_POINTS = {
+    "ash_score": {"ash_score_launch": (9, 6),
+                  "ash_score_topk_launch": (11, 8)},
+    "ash_gather": {"ash_gather_launch": (10, 7),
+                   "ash_gather_topk_launch": (11, 9)},
+    "ash_coarse": {"ash_coarse_launch": (11, 6),
+                   "ash_coarse_topk_launch": (13, 8)},
+}
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launch_counts() -> None:
@@ -34,18 +61,22 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def _kernels() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = _build.load("ash_score")
-        lib.ash_score_launch.argtypes = [_P] * 9 + [_I] * 6 + [_P]
-        lib.ash_score_launch.restype = _I
-        lib.ash_score_topk_launch.argtypes = (
-            [_P] * 11 + [_I] * 8 + [_P]
-        )
-        lib.ash_score_topk_launch.restype = _I
-        _lib = lib
-    return _lib
+def _kernels(source: str = "ash_score") -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>.cu``, built at first use."""
+    if source not in _libs:
+        lib = _build.load(source)
+        for fn, (n_ptr, n_int) in _ENTRY_POINTS[source].items():
+            getattr(lib, fn).argtypes = [_P] * n_ptr + [_I] * n_int + [_P]
+            getattr(lib, fn).restype = _I
+        _libs[source] = lib
+    return _libs[source]
+
+
+def load_all() -> None:
+    """Build (one nvcc per source, in parallel) and load every library."""
+    _build.build_all()
+    for source in _ENTRY_POINTS:
+        _kernels(source)
 
 
 def _ptr(t):
@@ -53,17 +84,18 @@ def _ptr(t):
 
 
 def _check(codes, q_proj, scale, offset, cluster, ipq, qterm, rowterm,
-           metric, b):
-    """Refuse what the kernel does not take (it converts nothing)."""
+           metric, b, extra=(), q_dtype=torch.float32):
+    """Refuse what the kernel does not take (it converts nothing).
+    ``extra`` adds (name, tensor, dtype, shape) operands to check."""
     if metric not in _METRIC_CODE:
         raise ValueError(f"unknown metric {metric!r}")
     if b not in (1, 2, 4, 8):
         raise ValueError(f"unsupported bitrate {b}")
     n, wd = codes.shape
-    m, d_pad = q_proj.shape
+    m = q_proj.shape[0]
     want = [
         ("codes", codes, torch.int32, (n, wd)),
-        ("q_proj", q_proj, torch.float32, (m, wd * (32 // b))),
+        ("q_proj", q_proj, q_dtype, (m, wd * (32 // b))),
         ("scale", scale, torch.float32, (n,)),
         ("offset", offset, torch.float32, (n,)),
         ("cluster", cluster, torch.int32, (n,)),
@@ -72,6 +104,7 @@ def _check(codes, q_proj, scale, offset, cluster, ipq, qterm, rowterm,
     if metric != "dot":
         want += [("qterm", qterm, torch.float32, (m,)),
                  ("rowterm", rowterm, torch.float32, (n,))]
+    want += list(extra)
     for name, t, dtype, shape in want:
         if t.device != codes.device or t.dtype != dtype:
             raise ValueError(
@@ -163,4 +196,160 @@ def ash_score_topk_cuda(
             f"ash_score_topk kernel launch failed: cudaError {rc}"
         )
     launch_counts["ash_score_topk"] += 1
+    return ref.merge_strip(vals, ids, k)
+
+
+def _launch(source: str, fn: str, name: str, *args) -> None:
+    """Call one C entry point; raise on a refused launch, else count it."""
+    rc = getattr(_kernels(source), fn)(*args)
+    if rc:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    launch_counts[name] += 1
+
+
+def _check_rows(rows, m):
+    if rows.dim() != 2 or rows.shape[0] != m:
+        raise ValueError(f"rows: want (m={m}, R), got {tuple(rows.shape)}")
+    return [("rows", rows, torch.int32, tuple(rows.shape))]
+
+
+def ash_score_gather_cuda(
+    codes, rows, q_proj, scale, offset, cluster, ip_q_landmarks,
+    qterm=None, rowterm=None, *, b: int, metric: str = "dot",
+) -> torch.Tensor:
+    """(m, R) f32 scores of query i against its candidate rows
+    ``rows[i]`` (int32 payload rows in [0, n), -1 = padding, scored
+    -inf).  Each score equals ``ash_score_cuda``'s score of the same
+    (query, row) bit for bit."""
+    if codes.device.type == "cpu":
+        return ref.ash_score_gather_ref(
+            codes, rows, q_proj, scale, offset, cluster, ip_q_landmarks,
+            qterm, rowterm, b=b, metric=metric,
+        )
+    m = q_proj.shape[0]
+    _check(codes, q_proj, scale, offset, cluster, ip_q_landmarks, qterm,
+           rowterm, metric, b, extra=_check_rows(rows, m))
+    n, wd = codes.shape
+    R = rows.shape[1]
+    out = torch.empty(m, R, dtype=torch.float32, device=codes.device)
+    if m == 0 or R == 0:
+        return out
+    _launch("ash_gather", "ash_gather_launch", "ash_score_gather",
+            _ptr(codes), _ptr(rows), _ptr(q_proj), _ptr(scale),
+            _ptr(offset), _ptr(cluster), _ptr(ip_q_landmarks), _ptr(qterm),
+            _ptr(rowterm), _ptr(out), n, m, R, wd,
+            ip_q_landmarks.shape[1], b, _METRIC_CODE[metric],
+            _stream(codes.device))
+    return out
+
+
+def ash_score_gather_topk_cuda(
+    codes, rows, q_proj, scale, offset, cluster, ip_q_landmarks,
+    qterm=None, rowterm=None, *, b: int, k: int, k_tilde=None,
+    metric: str = "dot",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused gathered scan + selection: (m, k) f32 scores and int32
+    payload rows.
+
+    Equal to a stable top-k over candidate POSITIONS of
+    ``ash_score_gather_cuda``'s scores, mapped back through ``rows``
+    (values, rows and tie order) whenever k <= k_tilde (default k).
+    The tile is 512 positions (the reference's is 128): the result is
+    the same whenever k <= k_tilde.  Pad ids never surface; slots past
+    the live candidates come back (-inf, -1); k above the strip raises.
+    """
+    if codes.device.type == "cpu":
+        return ref.ash_score_gather_topk_ref(
+            codes, rows, q_proj, scale, offset, cluster, ip_q_landmarks,
+            qterm, rowterm, b=b, k=k, k_tilde=k_tilde, metric=metric,
+        )
+    m = q_proj.shape[0]
+    _check(codes, q_proj, scale, offset, cluster, ip_q_landmarks, qterm,
+           rowterm, metric, b, extra=_check_rows(rows, m))
+    n, wd = codes.shape
+    R = rows.shape[1]
+    n_blocks, k_tilde, _ = ref.topk_geometry(R, k, k_tilde)
+    strip = n_blocks * k_tilde
+    vals = torch.empty(m, strip, dtype=torch.float32, device=codes.device)
+    pos = torch.empty(m, strip, dtype=torch.int32, device=codes.device)
+    if m == 0:
+        return vals[:, :k], pos[:, :k]
+    _launch("ash_gather", "ash_gather_topk_launch", "ash_score_gather_topk",
+            _ptr(codes), _ptr(rows), _ptr(q_proj), _ptr(scale),
+            _ptr(offset), _ptr(cluster), _ptr(ip_q_landmarks), _ptr(qterm),
+            _ptr(rowterm), _ptr(vals), _ptr(pos), n, m, R, wd,
+            ip_q_landmarks.shape[1], b, _METRIC_CODE[metric], k_tilde,
+            n_blocks, _stream(codes.device))
+    s, p = ref.merge_strip(vals, pos, k)
+    return s, ref.positions_to_rows(rows, p)
+
+
+def _coarse_extra(q_scale, q_corr, m):
+    return [("q_scale", q_scale, torch.float32, (m,)),
+            ("q_corr", q_corr, torch.float32, (m,))]
+
+
+def ash_score_coarse_cuda(
+    codes, q_int8, q_scale, q_corr, scale, offset, cluster, ip_q_landmarks,
+    qterm=None, rowterm=None, *, b: int, metric: str = "dot",
+) -> torch.Tensor:
+    """(m, n) f32 symmetric int8 coarse scores; ``q_int8`` is (m,
+    d_pad) int8, zero beyond the projection width.  Bit-equal to
+    ``ref.ash_score_coarse_ref``."""
+    if codes.device.type == "cpu":
+        return ref.ash_score_coarse_ref(
+            codes, q_int8, q_scale, q_corr, scale, offset, cluster,
+            ip_q_landmarks, qterm, rowterm, b=b, metric=metric,
+        )
+    m = q_int8.shape[0]
+    _check(codes, q_int8, scale, offset, cluster, ip_q_landmarks, qterm,
+           rowterm, metric, b, extra=_coarse_extra(q_scale, q_corr, m),
+           q_dtype=torch.int8)
+    n, wd = codes.shape
+    out = torch.empty(m, n, dtype=torch.float32, device=codes.device)
+    if n == 0 or m == 0:
+        return out
+    _launch("ash_coarse", "ash_coarse_launch", "ash_score_coarse",
+            _ptr(codes), _ptr(q_int8), _ptr(q_scale), _ptr(q_corr),
+            _ptr(scale), _ptr(offset), _ptr(cluster), _ptr(ip_q_landmarks),
+            _ptr(qterm), _ptr(rowterm), _ptr(out), n, m, wd,
+            ip_q_landmarks.shape[1], b, _METRIC_CODE[metric],
+            _stream(codes.device))
+    return out
+
+
+def ash_score_coarse_topk_cuda(
+    codes, q_int8, q_scale, q_corr, scale, offset, cluster, ip_q_landmarks,
+    qterm=None, rowterm=None, n_valid=None, row_valid=None, *,
+    b: int, k: int, k_tilde=None, metric: str = "dot",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused coarse scan + selection: top-k (scores, int32 ids), each
+    (m, k), with the masking, tie order and strip of
+    ``ash_score_topk_cuda`` over the coarse scores."""
+    mask = ref.row_mask(codes.shape[0], n_valid, row_valid, codes.device)
+    if mask is not None:
+        mask = mask.to(torch.int32)
+    if codes.device.type == "cpu":
+        return ref.ash_score_coarse_topk_ref(
+            codes, q_int8, q_scale, q_corr, scale, offset, cluster,
+            ip_q_landmarks, qterm, rowterm, mask, b=b, k=k,
+            k_tilde=k_tilde, metric=metric,
+        )
+    m = q_int8.shape[0]
+    _check(codes, q_int8, scale, offset, cluster, ip_q_landmarks, qterm,
+           rowterm, metric, b, extra=_coarse_extra(q_scale, q_corr, m),
+           q_dtype=torch.int8)
+    n, wd = codes.shape
+    n_blocks, k_tilde, _ = ref.topk_geometry(n, k, k_tilde)
+    strip = n_blocks * k_tilde
+    vals = torch.empty(m, strip, dtype=torch.float32, device=codes.device)
+    ids = torch.empty(m, strip, dtype=torch.int32, device=codes.device)
+    if m == 0:
+        return vals[:, :k], ids[:, :k]
+    _launch("ash_coarse", "ash_coarse_topk_launch", "ash_score_coarse_topk",
+            _ptr(codes), _ptr(q_int8), _ptr(q_scale), _ptr(q_corr),
+            _ptr(scale), _ptr(offset), _ptr(cluster), _ptr(ip_q_landmarks),
+            _ptr(qterm), _ptr(rowterm), _ptr(mask), _ptr(vals), _ptr(ids),
+            n, m, wd, ip_q_landmarks.shape[1], b, _METRIC_CODE[metric],
+            k_tilde, n_blocks, _stream(codes.device))
     return ref.merge_strip(vals, ids, k)

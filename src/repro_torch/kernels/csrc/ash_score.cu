@@ -31,30 +31,11 @@
 // Each C entry point launches on the given stream and returns
 // cudaGetLastError() so the wrapper can refuse a launch that failed.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ash_common.cuh"
 
 namespace {
 
-constexpr int MT = 8;               // queries per block (register tile)
 constexpr int SCORE_THREADS = 256;  // rows per materializing block
-constexpr int TOPK_BLOCK_N = 512;   // rows per selection tile == threads
-constexpr unsigned long long INVALID_KEY = ~0ull;
-constexpr int32_t ID_SENTINEL = 0x7fffffff;
-
-enum { METRIC_DOT = 0, METRIC_L2 = 1, METRIC_COS = 2 };
-
-struct ScanArgs {
-  const uint32_t* codes;  // (n, wd) packed words
-  const float* q_proj;    // (m, d_pad)
-  const float* scale;     // (n,)
-  const float* offset;    // (n,)
-  const int32_t* cluster; // (n,)
-  const float* ipq;       // (m, C)
-  const float* qterm;     // (m,)  null for dot
-  const float* rowterm;   // (n,)  null for dot
-  int n, m, wd, C;
-};
 
 // q_s[k * MT + i] = q_proj[m0 + i, k], zero for queries past m.
 __device__ __forceinline__ void load_query_chunk(const ScanArgs& a, int d_pad,
@@ -73,8 +54,6 @@ __device__ __forceinline__ void score_row(const ScanArgs& a, int j, int m0,
                                           const float* __restrict__ q_s,
                                           float out[MT]) {
   constexpr int CPW = 32 / B;
-  constexpr uint32_t LEVEL_MASK = (1u << B) - 1u;
-  constexpr int GMAX = (1 << B) - 1;
   float acc[MT];
 #pragma unroll
   for (int i = 0; i < MT; ++i) acc[i] = 0.f;
@@ -84,7 +63,7 @@ __device__ __forceinline__ void score_row(const ScanArgs& a, int j, int m0,
     const float4* qw = reinterpret_cast<const float4*>(q_s + w * CPW * MT);
 #pragma unroll
     for (int c = 0; c < CPW; ++c) {
-      const float v = (float)(2 * (int)((word >> (c * B)) & LEVEL_MASK) - GMAX);
+      const float v = (float)code_value<B>(word, c);
       const float4 lo = qw[2 * c], hi = qw[2 * c + 1];
       acc[0] = fmaf(lo.x, v, acc[0]);
       acc[1] = fmaf(lo.y, v, acc[1]);
@@ -104,13 +83,8 @@ __device__ __forceinline__ void score_row(const ScanArgs& a, int j, int m0,
   for (int i = 0; i < MT; ++i) {
     const int qi = min(m0 + i, a.m - 1);
     const float bias = __ldg(a.ipq + (size_t)qi * a.C + cl);
-    float base = __fadd_rn(__fadd_rn(__fmul_rn(acc[i], sc), bias), off);
-    if (METRIC == METRIC_L2) {
-      base = __fsub_rn(__fsub_rn(__fmul_rn(2.f, base), __ldg(a.qterm + qi)), rt);
-    } else if (METRIC == METRIC_COS) {
-      base = __fmul_rn(__fmul_rn(base, __ldg(a.qterm + qi)), rt);
-    }
-    out[i] = base;
+    const float qt = (METRIC == METRIC_DOT) ? 0.f : __ldg(a.qterm + qi);
+    out[i] = metric_tail<METRIC>(eq20_base(acc[i], sc, bias, off), qt, rt);
   }
 }
 
@@ -129,22 +103,6 @@ __global__ void __launch_bounds__(SCORE_THREADS)
 #pragma unroll
   for (int i = 0; i < MT; ++i)
     if (m0 + i < a.m) out[(size_t)(m0 + i) * a.n + j] = s[i];
-}
-
-// Order-preserving key: ascending key == (score descending, column
-// ascending).  Signed zeros are folded together, as float comparison
-// treats them.
-__device__ __forceinline__ unsigned long long make_key(float s, int col) {
-  uint32_t u = __float_as_uint(s);
-  if ((u & 0x7fffffffu) == 0u) u = 0u;
-  const uint32_t ord = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return ((unsigned long long)(~ord) << 32) | (uint32_t)col;
-}
-
-__device__ __forceinline__ float key_score(unsigned long long key) {
-  const uint32_t ord = ~(uint32_t)(key >> 32);
-  const uint32_t u = (ord & 0x80000000u) ? (ord & 0x7fffffffu) : ~ord;
-  return __uint_as_float(u);
 }
 
 template <int B, int METRIC>
@@ -172,66 +130,9 @@ __global__ void __launch_bounds__(TOPK_BLOCK_N)
     keys[i * TOPK_BLOCK_N + col] = valid ? make_key(s[i], col) : INVALID_KEY;
   __syncthreads();
 
-  // Bitonic sort of each query's tile of keys, ascending.
-  constexpr int HALF = TOPK_BLOCK_N / 2;
-  for (int size = 2; size <= TOPK_BLOCK_N; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int p = threadIdx.x; p < mc * HALF; p += blockDim.x) {
-        const int r = p / HALF, q = p % HALF;
-        const int lo = 2 * stride * (q / stride) + (q % stride);
-        const int hi = lo + stride;
-        unsigned long long* kr = keys + r * TOPK_BLOCK_N;
-        const unsigned long long x = kr[lo], y = kr[hi];
-        const bool ascending = (lo & size) == 0;
-        if ((x > y) == ascending) {
-          kr[lo] = y;
-          kr[hi] = x;
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  const int col0 = blockIdx.x * TOPK_BLOCK_N;
-  for (int t = threadIdx.x; t < mc * k_tilde; t += blockDim.x) {
-    const int r = t / k_tilde, slot = t % k_tilde;
-    const unsigned long long key = keys[r * TOPK_BLOCK_N + slot];
-    const size_t o = (size_t)(m0 + r) * strip + (size_t)blockIdx.x * k_tilde + slot;
-    if (key == INVALID_KEY) {
-      vals[o] = -__int_as_float(0x7f800000);  // -inf
-      ids[o] = ID_SENTINEL;
-    } else {
-      vals[o] = key_score(key);
-      ids[o] = col0 + (int)(key & 0xffffffffu);
-    }
-  }
-}
-
-template <template <int, int> class Launch, typename... Args>
-int dispatch(int b, int metric, Args... args) {
-#define ASH_CASE(BB)                                              \
-  case BB:                                                        \
-    switch (metric) {                                             \
-      case METRIC_DOT: return Launch<BB, METRIC_DOT>::run(args...); \
-      case METRIC_L2: return Launch<BB, METRIC_L2>::run(args...);   \
-      case METRIC_COS: return Launch<BB, METRIC_COS>::run(args...); \
-      default: return (int)cudaErrorInvalidValue;                 \
-    }
-  switch (b) {
-    ASH_CASE(1)
-    ASH_CASE(2)
-    ASH_CASE(4)
-    ASH_CASE(8)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef ASH_CASE
-}
-
-template <typename Kernel>
-int set_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  bitonic_sort_rows(keys, mc);
+  emit_strip(keys, mc, m0, k_tilde, strip, blockIdx.x * TOPK_BLOCK_N, vals,
+             ids);
 }
 
 template <int B, int METRIC>
@@ -260,26 +161,6 @@ struct LaunchTopk {
     return (int)cudaGetLastError();
   }
 };
-
-ScanArgs make_args(const void* codes, const void* q_proj, const void* scale,
-                   const void* offset, const void* cluster, const void* ipq,
-                   const void* qterm, const void* rowterm, int n, int m,
-                   int wd, int C) {
-  ScanArgs a;
-  a.codes = static_cast<const uint32_t*>(codes);
-  a.q_proj = static_cast<const float*>(q_proj);
-  a.scale = static_cast<const float*>(scale);
-  a.offset = static_cast<const float*>(offset);
-  a.cluster = static_cast<const int32_t*>(cluster);
-  a.ipq = static_cast<const float*>(ipq);
-  a.qterm = static_cast<const float*>(qterm);
-  a.rowterm = static_cast<const float*>(rowterm);
-  a.n = n;
-  a.m = m;
-  a.wd = wd;
-  a.C = C;
-  return a;
-}
 
 }  // namespace
 

@@ -1,11 +1,17 @@
-"""Plain PyTorch versions of the CUDA kernels (the dense half).
+"""Plain PyTorch versions of the CUDA kernels.
 
 Each function here computes what one kernel computes, with torch
 operations: the kernel wrappers run them for CPU tensors, and the
 tests and ``chip_smoke.py`` hold the kernels against them on the card.
 Selection follows the reference's ``lax.top_k`` convention: score
-descending, lowest id first on ties, done with STABLE sorts
-(``torch.topk`` orders ties differently).
+descending, lowest id (or candidate position) first on ties, done with
+STABLE sorts (``torch.topk`` orders ties differently).
+
+The dense scan and its fused selection (kernels 1-2), the gathered
+scan over per-query candidate rows and its fused selection (kernels
+3-4), the symmetric int8 coarse scan and its fused selection (kernels
+5-6), and the gathered coarse scan, which has no kernel (the
+reference's is oracle-only too).
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ from repro_torch.device import full_fp32
 
 ID_SENTINEL = 2**31 - 1  # id of an exhausted selection slot
 TOPK_BLOCK_N = 512  # rows per selection tile (as the reference's block_n)
+GATHER_CHUNK = 1 << 16  # candidate positions unpacked at a time
 
 
 def ash_score_ref(
@@ -41,25 +48,129 @@ def ash_score_ref(
     )
 
 
-def ash_score_metric_ref(
-    codes, q_proj, scale, offset, cluster, ip_q_landmarks,
-    qterm, rowterm, b: int, metric: str = "dot",
-) -> torch.Tensor:
-    """Metric-epilogue scores, higher-is-better, in the kernels' op
-    order: dot: base; l2: (2*base - qterm) - rowterm; cos:
-    (base * qterm) * rowterm."""
-    base = ash_score_ref(
-        codes, q_proj, scale, offset, cluster, ip_q_landmarks, b
-    )
+def _metric_tail(base, qcol, rrow, metric: str) -> torch.Tensor:
+    """The kernels' metric epilogue over an Eq. 20 base: dot: base;
+    l2: (2*base - qterm) - rowterm; cos: (base * qterm) * rowterm."""
     if metric == "dot":
         return base
-    qcol = qterm.to(torch.float32)[:, None]
-    rrow = rowterm.to(torch.float32)[None, :]
     if metric == "l2":
         return (2.0 * base - qcol) - rrow
     if metric == "cos":
         return (base * qcol) * rrow
     raise ValueError(metric)
+
+
+def ash_score_metric_ref(
+    codes, q_proj, scale, offset, cluster, ip_q_landmarks,
+    qterm, rowterm, b: int, metric: str = "dot",
+) -> torch.Tensor:
+    """Metric-epilogue scores, higher-is-better, in the kernels' op
+    order (:func:`_metric_tail`)."""
+    base = ash_score_ref(
+        codes, q_proj, scale, offset, cluster, ip_q_landmarks, b
+    )
+    if metric == "dot":
+        return base
+    return _metric_tail(base, qterm.to(torch.float32)[:, None],
+                        rowterm.to(torch.float32)[None, :], metric)
+
+
+def _gathered_dot(codes, safe, q, b: int) -> torch.Tensor:
+    """(m, R) rowwise sums sum_k q[i, k] * v[safe[i, t], k] over the
+    unpacked code rows of a candidate table, GATHER_CHUNK positions at a
+    time (a broadcast multiply and last-axis sum: each row's value does
+    not depend on the batch)."""
+    m, R = safe.shape
+    d_pad = codes.shape[1] * Q.codes_per_word(b)
+    q = q.to(torch.float32)
+    out = torch.empty(m, R, dtype=torch.float32, device=q.device)
+    for t0 in range(0, R, GATHER_CHUNK):
+        sl = safe[:, t0:t0 + GATHER_CHUNK]
+        V = Q.unpack_codes(codes[sl.reshape(-1)], d_pad, b).to(
+            torch.float32).reshape(m, sl.shape[1], d_pad)
+        out[:, t0:t0 + GATHER_CHUNK] = (q[:, None, :] * V).sum(dim=-1)
+    return out
+
+
+def _gathered_tail(base, rows, safe, qterm, rowterm, metric):
+    """Metric tail over gathered rows, then pad ids (-1) to -inf."""
+    if metric != "dot":
+        base = _metric_tail(base, qterm.to(torch.float32)[:, None],
+                            rowterm.to(torch.float32)[safe], metric)
+    return torch.where(rows >= 0, base, float("-inf"))
+
+
+def ash_score_gather_ref(
+    codes: torch.Tensor,  # (n, Wd) int32 packed words
+    rows: torch.Tensor,  # (m, R) int32 candidate rows, -1 = padding
+    q_proj: torch.Tensor,  # (m, d_pad)
+    scale, offset, cluster, ip_q_landmarks, qterm, rowterm,
+    b: int, metric: str = "dot",
+) -> torch.Tensor:
+    """Gathered scores (m, R): query i against its own candidate rows
+    ``rows[i]``, pad entries -inf.  The reference's
+    ``ash_score_gather_ref``: a rowwise dot term, then the dense
+    epilogue's op order over the gathered headers."""
+    safe = rows.clamp(min=0).long()
+    dot = _gathered_dot(codes, safe, q_proj, b)
+    bias = ip_q_landmarks.to(torch.float32).gather(1, cluster.long()[safe])
+    base = (
+        dot * scale.to(torch.float32)[safe]
+        + bias
+        + offset.to(torch.float32)[safe]
+    )
+    return _gathered_tail(base, rows, safe, qterm, rowterm, metric)
+
+
+def _coarse_base(dot_int, q_scale, q_corr, scale, offset, bias):
+    """Eq. 20 base of the coarse scan, in the coarse kernels' order:
+    dotc = acc * q_scale; biasq = bias + q_corr; dotc * scale + biasq +
+    offset.  ``dot_int`` holds the exact integer accumulation."""
+    dotc = dot_int.to(torch.float32) * q_scale.to(torch.float32)[:, None]
+    biasq = bias + q_corr.to(torch.float32)[:, None]
+    return dotc * scale.to(torch.float32) + biasq + offset.to(torch.float32)
+
+
+def ash_score_coarse_ref(
+    codes: torch.Tensor,  # (n, Wd) int32 packed words
+    q_int8: torch.Tensor,  # (m, d_pad) int8
+    q_scale: torch.Tensor,  # (m,)
+    q_corr: torch.Tensor,  # (m,)
+    scale, offset, cluster, ip_q_landmarks, qterm, rowterm,
+    b: int, metric: str = "dot",
+) -> torch.Tensor:
+    """Symmetric int8 coarse scores (m, n), higher-is-better.
+
+    The dot term is an fp32 product of exact small integers whose
+    partial sums stay below 2^24, so it equals the kernels' int32
+    accumulation in any order; the epilogue is :func:`_coarse_base`
+    then the metric tail."""
+    full_fp32()
+    d_pad = codes.shape[1] * Q.codes_per_word(b)
+    V = Q.unpack_codes(codes, d_pad, b).to(torch.float32)
+    dot = q_int8.to(torch.float32) @ V.T
+    bias = ip_q_landmarks.to(torch.float32)[:, cluster.long()]
+    base = _coarse_base(dot, q_scale, q_corr, scale[None, :],
+                        offset[None, :], bias)
+    if metric == "dot":
+        return base
+    return _metric_tail(base, qterm.to(torch.float32)[:, None],
+                        rowterm.to(torch.float32)[None, :], metric)
+
+
+def ash_score_coarse_gather_ref(
+    codes, rows, q_int8, q_scale, q_corr, scale, offset, cluster,
+    ip_q_landmarks, qterm, rowterm, b: int, metric: str = "dot",
+) -> torch.Tensor:
+    """Coarse scores over per-query candidate rows (m, R), pad entries
+    -inf: the gathered counterpart of :func:`ash_score_coarse_ref`,
+    unpacking only the gathered rows."""
+    safe = rows.clamp(min=0).long()
+    dot = _gathered_dot(codes, safe, q_int8, b)
+    bias = ip_q_landmarks.to(torch.float32).gather(1, cluster.long()[safe])
+    base = _coarse_base(dot, q_scale, q_corr, scale.to(torch.float32)[safe],
+                        offset.to(torch.float32)[safe], bias)
+    return _gathered_tail(base, rows, safe, qterm, rowterm, metric)
 
 
 def row_mask(n: int, n_valid=None, row_valid=None, device=None):
@@ -119,39 +230,26 @@ def merge_strip(vals: torch.Tensor, ids: torch.Tensor, k: int):
     return out_s, torch.where(out_i == ID_SENTINEL, -1, out_i)
 
 
-def ash_score_topk_ref(
-    codes, q_proj, scale, offset, cluster, ip_q_landmarks,
-    qterm, rowterm, mask, *, b: int, k: int, k_tilde=None,
-    metric: str = "dot",
-):
-    """Plain version of the fused scan + selection kernel: (m, k) f32
-    scores and int32 ids.
-
-    Scores every row, then per 512-row tile keeps the partial top-k_tilde
-    of (score desc, id asc) among valid rows (``mask`` (n,) nonzero, or
-    all rows when None): rows scoring -inf are still emitted once each,
-    masked rows never.  Exhausted slots carry the sentinel id; the strip
-    is merged by :func:`merge_strip`.  Equal to a stable top-k of the
-    masked scores whenever k <= k_tilde.
-    """
-    n = codes.shape[0]
-    m = q_proj.shape[0]
+def tile_topk_ref(scores: torch.Tensor, valid: torch.Tensor, k: int,
+                  k_tilde=None):
+    """The fused kernels' selection over a materialized (m, n) score
+    matrix: per tile of ``topk_geometry`` columns, the partial
+    top-k_tilde of (score desc, column asc) among valid columns
+    (``valid`` (n,) or (m, n) bool); columns scoring -inf are still
+    emitted once each, invalid ones never; exhausted slots carry the
+    sentinel.  The strip is merged by :func:`merge_strip`: (m, k) f32
+    scores and int32 columns, -1 where exhausted."""
+    m, n = scores.shape
     n_blocks, k_tilde, block_n = topk_geometry(n, k, k_tilde)
-    scores = ash_score_metric_ref(
-        codes, q_proj, scale, offset, cluster, ip_q_landmarks,
-        qterm, rowterm, b=b, metric=metric,
-    )
     n_p = n_blocks * block_n
-    valid = torch.ones(n, dtype=torch.bool, device=scores.device)
-    if mask is not None:
-        valid = mask.to(device=scores.device) != 0
+    valid = valid.to(device=scores.device, dtype=torch.bool).expand(m, n)
     valid = torch.nn.functional.pad(valid, (0, n_p - n), value=False)
     scores = torch.nn.functional.pad(
         scores, (0, n_p - n), value=float("-inf")
     ).reshape(m, n_blocks, block_n)
-    valid = valid.reshape(1, n_blocks, block_n).expand(m, -1, -1)
+    valid = valid.reshape(m, n_blocks, block_n)
     # per tile: score desc (stable: lowest column first on ties), then
-    # valid rows ahead of masked ones (stable again)
+    # valid columns ahead of invalid ones (stable again)
     order = torch.sort(scores, dim=2, descending=True, stable=True).indices
     v_ord = valid.gather(2, order)
     second = torch.sort((~v_ord).to(torch.int8), dim=2, stable=True).indices
@@ -167,4 +265,71 @@ def ash_score_topk_ref(
         tile_vals.reshape(m, -1),
         tile_ids.reshape(m, -1).to(torch.int32),
         k,
+    )
+
+
+def _mask_valid(mask, n: int, device) -> torch.Tensor:
+    if mask is None:
+        return torch.ones(n, dtype=torch.bool, device=device)
+    return mask.to(device=device) != 0
+
+
+def ash_score_topk_ref(
+    codes, q_proj, scale, offset, cluster, ip_q_landmarks,
+    qterm, rowterm, mask, *, b: int, k: int, k_tilde=None,
+    metric: str = "dot",
+):
+    """Plain version of the fused scan + selection kernel: (m, k) f32
+    scores and int32 ids.  Scores every row, then selects per 512-row
+    tile among valid rows (``mask`` (n,) nonzero, or all rows when
+    None) with :func:`tile_topk_ref`.  Equal to a stable top-k of the
+    masked scores whenever k <= k_tilde.
+    """
+    scores = ash_score_metric_ref(
+        codes, q_proj, scale, offset, cluster, ip_q_landmarks,
+        qterm, rowterm, b=b, metric=metric,
+    )
+    return tile_topk_ref(
+        scores, _mask_valid(mask, codes.shape[0], scores.device), k, k_tilde
+    )
+
+
+def positions_to_rows(rows: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Map selected candidate positions (m, k), -1 where exhausted, back
+    through the candidate table ``rows`` (m, R); -1 stays -1."""
+    got = rows.gather(1, pos.clamp(min=0).long())
+    return torch.where(pos < 0, -1, got).to(torch.int32)
+
+
+def ash_score_gather_topk_ref(
+    codes, rows, q_proj, scale, offset, cluster, ip_q_landmarks,
+    qterm, rowterm, *, b: int, k: int, k_tilde=None, metric: str = "dot",
+):
+    """Plain version of the fused gathered scan + selection kernel:
+    (m, k) f32 scores and int32 payload rows.  Selects over candidate
+    POSITIONS (ties to the lowest position, as the reference's gather
+    kernel), pad ids never surface, and maps positions back through
+    ``rows``; exhausted slots are (-inf, -1)."""
+    scores = ash_score_gather_ref(
+        codes, rows, q_proj, scale, offset, cluster, ip_q_landmarks,
+        qterm, rowterm, b=b, metric=metric,
+    )
+    s, pos = tile_topk_ref(scores, rows >= 0, k, k_tilde)
+    return s, positions_to_rows(rows, pos)
+
+
+def ash_score_coarse_topk_ref(
+    codes, q_int8, q_scale, q_corr, scale, offset, cluster,
+    ip_q_landmarks, qterm, rowterm, mask, *, b: int, k: int,
+    k_tilde=None, metric: str = "dot",
+):
+    """Plain version of the fused coarse scan + selection kernel: the
+    selection of :func:`ash_score_topk_ref` over
+    :func:`ash_score_coarse_ref` scores."""
+    scores = ash_score_coarse_ref(
+        codes, q_int8, q_scale, q_corr, scale, offset, cluster,
+        ip_q_landmarks, qterm, rowterm, b=b, metric=metric,
+    )
+    return tile_topk_ref(
+        scores, _mask_valid(mask, codes.shape[0], scores.device), k, k_tilde
     )

@@ -162,20 +162,31 @@ def test_load_integrity_checks(data, tmp_path):
 
 
 def test_unported_plans_raise(data):
+    """Gathered and coarse plans run now; what is still refused: the
+    sharded and tiered backends, ``shortlist=`` without ``coarse=``, an
+    unknown coarse mode, and row masks on a gathered plan."""
     X, _, Qm, _, _ = data
     ti = AshIndex.build(torch.Generator().manual_seed(0),
                         torch.from_numpy(X[:600]),
                         ASHConfig(b=2, d=8, n_landmarks=4), device="cpu")
     prep = ti.prepare(torch.from_numpy(Qm))
-    for kw, item in (({"coarse": "int8"}, "item 7"),
-                     ({"rows": torch.zeros(10, 4, dtype=torch.int32)},
-                      "item 6")):
+    rows = torch.zeros(10, 4, dtype=torch.int32)
+    for kw, match in (({"shortlist": 8}, "requires coarse"),
+                      ({"coarse": "int4"}, "unknown coarse mode"),
+                      ({"rows": rows, "row_valid": torch.ones(600, dtype=bool)},
+                       "dense plans only")):
         plan = TC.ScanPlan(metric="dot", k=5, **kw)
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(ValueError, match=match):
             TC.execute_plan(ti.model, prep, ti.payload, plan)
-    with pytest.raises(ValueError, match="unknown backend"):
-        AshIndex.build(torch.Generator(), torch.from_numpy(X[:600]),
-                       ASHConfig(b=2, d=8), backend="ivf", device="cpu")
+    for plan in (TC.ScanPlan(metric="dot", k=5, coarse="int8"),
+                 TC.ScanPlan(metric="dot", k=3, rows=rows)):
+        s, ids = TC.execute_plan(ti.model, prep, ti.payload, plan)
+        assert s.shape == ids.shape == (10, plan.k)
+    for backend in ("sharded", "tiered_ivf"):
+        with pytest.raises(ValueError, match="unknown backend"):
+            AshIndex.build(torch.Generator(), torch.from_numpy(X[:600]),
+                           ASHConfig(b=2, d=8), backend=backend,
+                           device="cpu")
 
 
 @pytest.mark.parametrize("metric", METRICS)
@@ -225,8 +236,10 @@ def _imports(path: pathlib.Path) -> set[str]:
 
 def test_port_never_imports_jax_or_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    files += sorted((REPO / "tests" / "cuda").glob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10 and files[-1].is_file()
+    assert REPO / "src" / "repro_torch" / "index" / "ivf.py" in files
     for f in files:
         bad = _imports(f) & {"jax", "jaxlib", "repro"}
         assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"

@@ -198,9 +198,19 @@ def test_stable_top_k_matches_lax_ties():
 def test_cpu_path_counts_no_launch_and_check_refuses():
     TK.reset_launch_counts()
     a = _inputs(37, 2, 32, 64, 2, 4, exact=True)
-    TK.ash_score_cuda(*_torch_args(a, "dot"), b=2)
-    TK.ash_score_topk_cuda(*_torch_args(a, "dot"), b=2, k=3)
-    assert TK.launch_counts == {"ash_score": 0, "ash_score_topk": 0}
+    args = _torch_args(a, "dot")
+    rows = torch.tensor([[0, 5, -1], [63, 1, 2]], dtype=torch.int32)
+    qi = torch.zeros(2, args[1].shape[1], dtype=torch.int8)
+    ones = torch.ones(2)
+    TK.ash_score_cuda(*args, b=2)
+    TK.ash_score_topk_cuda(*args, b=2, k=3)
+    TK.ash_score_gather_cuda(args[0], rows, *args[1:], b=2)
+    TK.ash_score_gather_topk_cuda(args[0], rows, *args[1:], b=2, k=2)
+    TK.ash_score_coarse_cuda(args[0], qi, ones, ones, *args[2:], b=2)
+    TK.ash_score_coarse_topk_cuda(args[0], qi, ones, ones, *args[2:], b=2,
+                                  k=3)
+    assert len(TK.launch_counts) == 6
+    assert set(TK.launch_counts.values()) == {0}
     args = list(_torch_args(a, "dot"))
     args[1] = args[1].to(torch.float64)
     with pytest.raises(ValueError, match="q_proj"):
