@@ -77,17 +77,21 @@ def _kmeanspp_init(gen: torch.Generator, X: torch.Tensor, C: int):
     """k-means++ seeding (D^2 sampling by inverse CDF of uniform draws)."""
     n = X.shape[0]
     first = torch.randint(0, n, (1,), generator=gen, device=gen.device)
-    u = torch.rand(max(C - 1, 0), generator=gen, device=gen.device)
-    first, u = first.to(X.device), u.to(X.device)
+    u = torch.rand(max(C - 1, 0), generator=gen, device=gen.device).cpu()
+    first = first.to(X.device)
     centroids = torch.zeros(C, X.shape[1], dtype=X.dtype, device=X.device)
     centroids[0] = X[first[0]]
     d2 = ((X - X[first]) ** 2).sum(dim=-1)
     for i in range(1, C):
         p = d2 / torch.clamp(d2.sum(), min=_EPS)
-        cdf = torch.cumsum(p, dim=0)
+        # the CDF on the host: a 1-D float scan on the card (CUB's
+        # decoupled look-back) adds in an order that changes from run to
+        # run, which moved the sampled index and made training
+        # irreproducible
+        cdf = torch.cumsum(p.cpu(), dim=0)
         idx = torch.clamp(
             torch.searchsorted(cdf, u[i - 1 : i] * cdf[-1]), max=n - 1
-        )
+        ).to(X.device)
         c_new = X[idx]  # (1, D)
         centroids[i] = c_new[0]
         d2 = torch.minimum(d2, ((X - c_new) ** 2).sum(dim=-1))
@@ -101,11 +105,34 @@ def assign_clusters(X: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     return torch.argmin(d2, dim=-1).to(torch.int32)
 
 
+# Rows per one-hot block of :func:`segment_sum`: bounds the (C, rows)
+# indicator matrix to 2^26 elements (256 MB in fp32).
+_SEGMENT_ELEMS = 2**26
+
+
+def segment_sum(X: torch.Tensor, seg: torch.Tensor, C: int) -> torch.Tensor:
+    """sum of the rows of X (n, D) per segment id in [0, C): (C, D).
+
+    Deterministic on every device: a product of a one-hot (C, rows)
+    block with X, block by block in a fixed order.  ``index_add_`` on a
+    CUDA tensor adds with float atomics in an order that changes from
+    run to run, which made training on the card irreproducible.
+    """
+    full_fp32()
+    sums = torch.zeros(C, X.shape[1], dtype=X.dtype, device=X.device)
+    ids = torch.arange(C, device=X.device)[:, None]
+    step = max(1, _SEGMENT_ELEMS // C)
+    for i in range(0, X.shape[0], step):
+        onehot = (seg[None, i:i + step] == ids).to(X.dtype)
+        sums += onehot @ X[i:i + step]
+    return sums
+
+
 def lloyd_step(X: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     """One Lloyd update; empty clusters keep their old centroid."""
     C = centroids.shape[0]
     assign = assign_clusters(X, centroids).long()
-    sums = torch.zeros_like(centroids).index_add_(0, assign, X)
+    sums = segment_sum(X, assign, C)
     counts = torch.bincount(assign, minlength=C).to(X.dtype)
     new = sums / torch.clamp(counts[:, None], min=1.0)
     return torch.where(counts[:, None] > 0, new, centroids)

@@ -63,7 +63,10 @@ def quant_exact(u: torch.Tensor, b: int) -> torch.Tensor:
     sum_a = a.sum(dim=1, keepdim=True)
     S1 = torch.cumsum(torch.gather(dS1, 1, order), dim=1) + sum_a
     S2 = torch.cumsum(torch.gather(dS2, 1, order), dim=1) + d
-    obj0 = sum_a / torch.sqrt(torch.tensor(float(d), device=u.device))
+    # d as a device fill: torch.tensor(d, device=...) would be a pageable
+    # host-to-device copy, which waits for the stream (a host stall per
+    # call, twice per layer of every decode step)
+    obj0 = sum_a / torch.sqrt(torch.full((), float(d), device=u.device))
     obj = torch.cat([obj0, S1 / torch.sqrt(S2)], dim=1)
     k_star = torch.argmax(obj, dim=1)  # first maximum, as jnp.argmax
     ranks = torch.empty_like(order)

@@ -16,6 +16,7 @@ from repro_torch.core.types import (
     ASHModel, ASHPayload, ASHStats, CoarseCodes, CoarseQueryPrep, QueryPrep,
 )
 from repro_torch.kernels import ref
+from repro_torch.kernels.ash_kv_attn import ash_kv_attn_cuda
 from repro_torch.kernels.ash_score import (
     ash_score_coarse_cuda,
     ash_score_coarse_topk_cuda,
@@ -395,3 +396,31 @@ def coarse_refine_gather_topk(
     cand = sort_candidate_rows(torch.where(torch.isneginf(svals), -1, cand))
     return _refine_topk(model, prep, payload, cand, k, metric=metric,
                         stats=stats, use_kernel=use_kernel)
+
+
+def ash_kv_attention(
+    q_k: torch.Tensor,  # (..., G, dk) projected queries (W_k q), f32
+    k_codes: torch.Tensor,  # (..., S, Wk)
+    k_scale: torch.Tensor,  # (..., S)
+    k_bias,  # (..., S) or None
+    v_codes: torch.Tensor,  # (..., S, Wv)
+    v_scale: torch.Tensor,  # (..., S)
+    mask,  # (..., S) bool or None
+    *,
+    b_k: int,
+    b_v: int,
+    use_kernel: bool = True,
+) -> torch.Tensor:
+    """Batched ASH-KV decode attention, G query heads per KV stream.
+
+    Returns the reduced-space accumulation (..., G, dv); the caller
+    decodes with W_v^T.  The kernel for CUDA tensors (at most two lead
+    dims; operands read through their strides), the plain version for
+    CPU tensors or ``use_kernel=False``.  The reference's single-query
+    form is G = 1.
+    """
+    if use_kernel:
+        return ash_kv_attn_cuda(q_k, k_codes, k_scale, k_bias, v_codes,
+                                v_scale, mask, b_k=b_k, b_v=b_v)
+    return ref.ash_kv_attn_ref(q_k, k_codes, k_scale, k_bias, v_codes,
+                               v_scale, b_k, b_v, mask=mask)[0]

@@ -10,8 +10,9 @@ STABLE sorts (``torch.topk`` orders ties differently).
 The dense scan and its fused selection (kernels 1-2), the gathered
 scan over per-query candidate rows and its fused selection (kernels
 3-4), the symmetric int8 coarse scan and its fused selection (kernels
-5-6), and the gathered coarse scan, which has no kernel (the
-reference's is oracle-only too).
+5-6), the gathered coarse scan, which has no kernel (the
+reference's is oracle-only too), and decode attention over an
+ASH-compressed KV cache (kernel 7).
 """
 from __future__ import annotations
 
@@ -333,3 +334,46 @@ def ash_score_coarse_topk_ref(
     return tile_topk_ref(
         scores, _mask_valid(mask, codes.shape[0], scores.device), k, k_tilde
     )
+
+
+KV_NEG = -1e30  # logit of a masked cache position (the kernels' value)
+
+
+def ash_kv_attn_ref(
+    q_k: torch.Tensor,  # (..., G, dk) queries projected into K-code space
+    k_codes: torch.Tensor,  # (..., S, Wk) packed K codes (int32 words)
+    k_scale: torch.Tensor,  # (..., S)
+    k_bias,  # (..., S) per-position logit bias, or None (zero)
+    v_codes: torch.Tensor,  # (..., S, Wv) packed V codes
+    v_scale: torch.Tensor,  # (..., S)
+    b_k: int,
+    b_v: int,
+    mask=None,  # (..., S) bool, broadcastable; False = ignore
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decode attention over an ASH-compressed KV cache, G query heads
+    per KV stream: returns (acc (..., G, dv) f32, p (..., G, S)) with
+
+      logits_i = k_scale_i * <q_k, unpack(k_codes_i)> + k_bias_i
+      p = softmax(logits);  acc = sum_i p_i v_scale_i unpack(v_codes_i)
+
+    ``dk``/``dv`` are the packed widths (Wk, Wv words); code lanes past
+    the model's code dimension must be zero in ``q_k``.  The caller
+    completes the output as W_v^T acc (linear decode).  Masked logits
+    are -1e30, as in the kernels: with at least one valid position this
+    equals the reference's -inf; with none, p is uniform instead of NaN.
+    The reference's single-query form is G = 1.
+    """
+    full_fp32()
+    dk = k_codes.shape[-1] * Q.codes_per_word(b_k)
+    dv = v_codes.shape[-1] * Q.codes_per_word(b_v)
+    K = Q.unpack_codes(k_codes, dk, b_k).to(torch.float32)
+    V = Q.unpack_codes(v_codes, dv, b_v).to(torch.float32)
+    logits = torch.matmul(q_k.to(torch.float32), K.transpose(-1, -2))
+    logits = logits * k_scale.to(torch.float32)[..., None, :]
+    if k_bias is not None:
+        logits = logits + k_bias.to(torch.float32)[..., None, :]
+    if mask is not None:
+        logits = torch.where(mask[..., None, :], logits, KV_NEG)
+    p = torch.softmax(logits, dim=-1)
+    acc = torch.matmul(p * v_scale.to(torch.float32)[..., None, :], V)
+    return acc, p

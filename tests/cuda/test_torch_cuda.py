@@ -301,3 +301,168 @@ def test_ivf_on_card(cuda):
     fc = flat.search(Qm, k=10, coarse="int8")
     assert TK.launch_counts["ash_score_coarse_topk"] >= 1
     assert (fc[1] == fa[1]).float().mean() > 0.8
+
+
+# -- kernel 7: decode attention over an ASH-compressed KV cache ----------
+# Tolerance: rtol 1e-4 and atol 1e-5 x max(1, largest |plain value|):
+# the reference's own kernel test (tests/test_kernels.py) uses rtol 1e-4,
+# atol 1e-5 for grid values up to 15 (b <= 4); fp32 sums over S
+# positions, split across blocks and combined, in another order than the
+# plain version's, err in proportion to the values' size, which reaches
+# 255 at b = 8.
+
+
+def _kv_close(got, want):
+    torch.testing.assert_close(
+        got, want, rtol=1e-4, atol=1e-5 * max(1.0, want.abs().max().item()))
+
+
+def _kv_inputs(seed, bk, bv, dk, dv, S, lead, G, device, *,
+               scale_dtype=torch.float32, bias=True, mask_from=0):
+    """Packed K/V codes (*lead, S, W) of quantized Gaussian vectors,
+    scales, bias and a mask valid on [mask_from, S - 3)."""
+    rng = np.random.default_rng(seed)
+    kv = Q.quant(torch.from_numpy(rng.standard_normal(lead + (S, dk))), bk)
+    vv = Q.quant(torch.from_numpy(rng.standard_normal(lead + (S, dv))), bv)
+    pos = torch.arange(S)
+    t = dict(
+        q=torch.from_numpy(rng.standard_normal(lead + (G, dk)) * 0.1).float(),
+        kc=Q.pack_codes(kv, bk), vc=Q.pack_codes(vv, bv),
+        ks=(torch.from_numpy(rng.uniform(0.5, 1.5, lead + (S,))) * 0.05).to(
+            scale_dtype),
+        kb=(torch.from_numpy(rng.standard_normal(lead + (S,)) * 0.1).float()
+            if bias else None),
+        vs=torch.from_numpy(rng.uniform(0.5, 1.5, lead + (S,))).to(
+            scale_dtype),
+        mask=(pos >= mask_from) & (pos < S - 3),
+    )
+    return {k: None if v is None else v.to(device) for k, v in t.items()}
+
+
+def _kv_both(t, bk, bv):
+    from repro_torch.kernels import ash_kv_attn as KA
+
+    before = KA.launch_counts["ash_kv_attn"]
+    got = KA.ash_kv_attn_cuda(t["q"], t["kc"], t["ks"], t["kb"], t["vc"],
+                              t["vs"], t["mask"], b_k=bk, b_v=bv)
+    torch.cuda.synchronize()
+    assert KA.launch_counts["ash_kv_attn"] == before + 1
+    want = TR.ash_kv_attn_ref(t["q"], t["kc"], t["ks"], t["kb"], t["vc"],
+                              t["vs"], bk, bv, mask=t["mask"])[0]
+    return got, want
+
+
+@pytest.mark.parametrize("bk", [1, 2, 4, 8])
+@pytest.mark.parametrize("bv", [1, 2, 4, 8])
+def test_kv_attn_kernel_vs_plain_bitrates(cuda, bk, bv):
+    t = _kv_inputs(bk * 10 + bv, bk, bv, 128, 128, 1000, (2, 3), 3, cuda)
+    got, want = _kv_both(t, bk, bv)
+    _kv_close(got, want)
+
+
+@pytest.mark.parametrize("G", [1, 3, 8])
+@pytest.mark.parametrize("S,mask_from", [(77, 0), (513, 0), (4099, 700),
+                                         (300, 200)])
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias", [True, False])
+def test_kv_attn_kernel_edges(cuda, G, S, mask_from, scale_dtype, bias):
+    """Ragged S, a leading fully masked stretch (longer than a tile and a
+    split), bf16 or fp32 scales, bias or none, G heads per stream."""
+    t = _kv_inputs(S + G, 4, 2, 96, 64, S, (5,), G, cuda,
+                   scale_dtype=scale_dtype, bias=bias, mask_from=mask_from)
+    got, want = _kv_both(t, 4, 2)
+    _kv_close(got, want)
+
+
+@pytest.mark.parametrize("dk,dv", [(40, 24), (56, 20)])
+def test_kv_attn_kernel_unaligned_rows(cuda, dk, dv):
+    """Packed rows of 5 or 7 K words and 6 or 5 V words (b = 4 and 8;
+    not 16-byte multiples): the kernel's 4-byte copy path."""
+    t = _kv_inputs(dk, 4, 8, dk, dv, 900, (3, 2), 3, cuda)
+    got, want = _kv_both(t, 4, 8)
+    _kv_close(got, want)
+
+
+def test_kv_attn_kernel_reads_layer_cache_in_place(cuda):
+    """The (B, S, KV, W) layer cache permuted to (B, KV, S, W) as a view,
+    bf16 scales of the same layout, a broadcast (S,) mask, no bias."""
+    B, S, KV, G, b = 3, 700, 2, 3, 4
+    rng = np.random.default_rng(3)
+    vals = Q.quant(torch.from_numpy(rng.standard_normal((2, B, S, KV, 128))),
+                   b)
+    codes = Q.pack_codes(vals, b).to(cuda)  # (2, B, S, KV, 16)
+    scales = torch.from_numpy(rng.uniform(0.01, 0.1, (2, B, S, KV))).to(
+        cuda, torch.bfloat16)
+    q = torch.from_numpy(rng.standard_normal((B, KV, G, 128))).float().to(cuda)
+    mask = torch.arange(S, device=cuda) <= 650
+    args = (q, codes[0].permute(0, 2, 1, 3), scales[0].permute(0, 2, 1),
+            None, codes[1].permute(0, 2, 1, 3), scales[1].permute(0, 2, 1),
+            mask)
+    from repro_torch.kernels import ops
+
+    got = ops.ash_kv_attention(*args, b_k=b, b_v=b)
+    want = ops.ash_kv_attention(*args, b_k=b, b_v=b, use_kernel=False)
+    _kv_close(got, want)
+
+
+def test_kv_attn_wrapper_refuses_bad_operands(cuda):
+    from repro_torch.kernels import ash_kv_attn as KA
+
+    t = _kv_inputs(1, 4, 4, 128, 128, 200, (2,), 3, cuda)
+    args = [t["q"], t["kc"], t["ks"], t["kb"], t["vc"], t["vs"], t["mask"]]
+    bad = list(args)
+    bad[0] = bad[0].double()
+    with pytest.raises(ValueError, match="q_k"):
+        KA.ash_kv_attn_cuda(*bad, b_k=4, b_v=4)
+    bad = list(args)
+    bad[5] = bad[5].to(torch.bfloat16)
+    with pytest.raises(ValueError, match="scales"):
+        KA.ash_kv_attn_cuda(*bad, b_k=4, b_v=4)
+    bad = list(args)
+    bad[0] = torch.zeros(2, 9, 128, device=cuda)
+    with pytest.raises(ValueError, match="q_k"):
+        KA.ash_kv_attn_cuda(*bad, b_k=4, b_v=4)
+    with pytest.raises(ValueError, match="bitrates"):
+        KA.ash_kv_attn_cuda(*args, b_k=3, b_v=4)
+
+
+@pytest.mark.parametrize("kv_quant_bits", [0, 4])
+def test_decode_step_on_card_matches_cpu(cuda, kv_quant_bits):
+    """A 2-layer float32 model decoding 10 steps on the card (through
+    kernel 7 for the ASH-KV cache) against the same parameters on the
+    CPU (plain attention): logits within 1e-3 of the largest |logit|
+    (fp32 products and sums in other orders, through two layers), and
+    at least 99 % of the packed codes equal (an encode's projection
+    near a quantizer breakpoint may round the other way)."""
+    from repro_torch.kernels import ash_kv_attn as KA
+    from repro_torch.models import transformer as TT
+
+    cfg = TT.TransformerConfig(
+        name="t", n_layers=2, d_model=64, n_heads=6, n_kv_heads=2, d_head=16,
+        d_ff=128, vocab=96, dtype=torch.float32, param_dtype=torch.float32,
+        q_chunk=0, kv_quant_bits=kv_quant_bits)
+    p_cpu = TT.init_params(torch.Generator().manual_seed(0), cfg,
+                           device="cpu")
+    p_gpu = TT.init_params(torch.Generator().manual_seed(0), cfg,
+                           device="cpu").to(cuda)
+    c_cpu = TT.init_cache(cfg, 3, 16, device="cpu")
+    c_gpu = TT.init_cache(cfg, 3, 16, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 96, (3, 10)))
+    KA.reset_launch_counts()
+    for t in range(10):
+        a, c_cpu = TT.decode_step(p_cpu, c_cpu, toks[:, t], t, cfg)
+        b, c_gpu = TT.decode_step(p_gpu, c_gpu, toks[:, t].to(cuda), t, cfg)
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-3,
+                                   atol=1e-3 * a.abs().max().item())
+    if kv_quant_bits:
+        assert KA.launch_counts["ash_kv_attn"] == 10 * cfg.n_layers
+        for name in ("k_codes", "v_codes"):
+            same = (c_gpu[name].cpu() == c_cpu[name]).float().mean().item()
+            assert same >= 0.99, (name, same)
+        # the kernel route against the plain route on the card
+        c2 = TT.init_cache(cfg, 3, 16, device=cuda)
+        for t in range(10):
+            b2, c2 = TT.decode_step(p_gpu, c2, toks[:, t].to(cuda), t, cfg,
+                                    use_kernel=False)
+        torch.testing.assert_close(b2, b, rtol=1e-3,
+                                   atol=1e-3 * b.abs().max().item())
