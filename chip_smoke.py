@@ -19,32 +19,41 @@ for exact rerank.  Phases, one line each:
      (``AshIndex.from_parts``, nlist = 64);
   4. the dense kernels against their plain PyTorch versions on the same
      inputs (8 queries, the full index, metrics dot/l2/cos), and the
-     fused kernel EXACTLY equal to a stable top-k of the materializing
-     kernel's scores, with no mask, a tombstone mask and ``n_valid``;
+     fused kernel (scan + strip merge) EXACTLY equal to a stable top-k
+     of the materializing kernel's scores, with no mask, a tombstone
+     mask and ``n_valid``, on rows reordered so that every query's
+     scores ascend (every key passes the selection's threshold), and
+     for k~ < k equal to the per-tile selection ``ref.tile_topk_ref``;
   4b. the gathered and coarse kernels at the phase shape (8 queries;
      their IVF candidate table at nprobe = 8 for the gathered ones):
      gathered scores within the bound of their plain version and
      bit-equal to the dense kernel's, the fused gathered selection
      EXACTLY a stable top-k over positions of them, the coarse scan
      bit-equal to its plain version, the fused coarse selection EXACTLY
-     a stable top-k of it under the four masks;
+     a stable top-k of it under the four masks and on ascending rows,
+     and the per-tile selection for k~ < k;
   5. a request stream through ``AshIndex.search``: 125 requests of 8
      queries at k=100 (fused route) and 16 at k=10, rerank=256
      (materializing kernel + exact rerank); launch counts are zeroed
-     just before and read just after;
+     just before and read just after: exactly one scan launch of kernel
+     2 and at most one merge launch per fused request;
   5b. a stream of 32 requests of 8 queries on each new route: IVF k=100
      (fused gathered), IVF k=10 rerank=256 (materializing gathered),
      flat coarse k=10 (fused coarse -> fused gathered), flat coarse k=10
      rerank=256 (materializing coarse -> materializing gathered), IVF
      coarse k=10 (plain gathered coarse -> fused gathered); counts are
      zeroed before it and each route's kernels must have launched at
-     least once per request; a single query searched alone equals its
-     row of the batch on every route;
+     least once per request, kernel 6 exactly once and the merge at
+     most once; a single query searched alone equals its row of the
+     batch on every route;
   6. 10-recall@10/@100 against exact search, kernel route and plain
      route on the card; 6b the same for each new route;
   7. per-kernel times, bounds and library yardsticks of kernels 1-6
-     (a ``kernels`` JSON line), the fused strip merge alone, and a
-     ``torch.profiler`` breakdown of flat and IVF requests (device time
+     (a ``kernels`` JSON line; kernels 2 and 6 with their merge), the
+     scan alone and the merge kernel alone on the strip the scan emits
+     (and the merge EQUAL to ``ref.merge_strip`` there),
+     ``ref.merge_strip`` at kernel 4's strip, and a ``torch.profiler``
+     breakdown of flat k=100, IVF and flat coarse requests (device time
      by kernel, idle share);
   8. save, load, search again, flat and IVF: results bit-identical;
   9. LM build: llama3.2-3B (``repro_torch.configs.llama32_3b``, 28
@@ -166,6 +175,54 @@ def bound(ops_ms, bytes_):
 def pct(v, p):
     v = sorted(v)
     return v[min(len(v) - 1, int(round(p / 100 * (len(v) - 1))))]
+
+
+def ascending_operands(args, qterm, rowterm, rows, q_ops, order):
+    """Operands whose rows are reordered by ``order`` (query 0's scores
+    ascending) and whose every query is query 0: every span of the fused
+    selection then sees improving keys, all of which pass its threshold.
+    ``rows`` and ``q_ops`` index the row and query operands of ``args``."""
+    out = list(args)
+    for t in rows:
+        out[t] = out[t][order].contiguous()
+    for t in q_ops:
+        out[t] = out[t][:1].expand_as(out[t]).contiguous()
+    if rowterm is not None:
+        rowterm = rowterm[order].contiguous()
+        qterm = qterm[:1].expand_as(qterm).contiguous()
+    return out, qterm, rowterm
+
+
+def capture_strip(fn):
+    """Run a fused wrapper once and return the key strip its scan
+    handed to the merge (the merge runs as usual)."""
+    from repro_torch.kernels import ash_score as TK
+
+    merge, got = TK.ash_topk_merge_cuda, {}
+
+    def keep(keys, k, run=0):
+        got["keys"], got["run"] = keys.clone(), run
+        return merge(keys, k, run)
+
+    TK.ash_topk_merge_cuda = keep
+    try:
+        fn()
+    finally:
+        TK.ash_topk_merge_cuda = merge
+    return got["keys"], got["run"]
+
+
+def scan_only_ms(fn):
+    """Device ms of a fused wrapper's scan alone: the merge replaced by
+    a no-op for the timing."""
+    from repro_torch.kernels import ash_score as TK
+
+    merge = TK.ash_topk_merge_cuda
+    TK.ash_topk_merge_cuda = lambda keys, *_: (keys, keys)
+    try:
+        return event_ms(fn)
+    finally:
+        TK.ash_topk_merge_cuda = merge
 
 
 def profile_requests(search, queries, n_prof=20):
@@ -770,11 +827,35 @@ def main() -> int:
                                  and torch.equal(fi, mi.to(torch.int32))))
         check(all(exact_eq), f"{metric}: fused != sorted materialized "
                              f"{exact_eq}")
+        # rows in ascending score order (every key passes the threshold)
+        order = torch.sort(got[0], stable=True).indices
+        a_args, a_qt, a_rt = ascending_operands(args, qterm, rowterm,
+                                                (0, 2, 3, 4), (1, 5), order)
+        a_full = TK.ash_score_cuda(*a_args, a_qt, a_rt, b=payload.b,
+                                   metric=metric)
+        check(bool((a_full[0, 1:] >= a_full[0, :-1]).all()),
+              f"{metric}: reordered rows not ascending")
+        fs, fi = TK.ash_score_topk_cuda(*a_args, a_qt, a_rt, b=payload.b,
+                                        k=K, metric=metric)
+        ms_, mi = ref.stable_top_k(a_full, K)
+        exact_asc = bool(torch.equal(fs, ms_)
+                         and torch.equal(fi, mi.to(torch.int32)))
+        check(exact_asc, f"{metric}: fused != sorted on ascending rows")
+        del a_args, a_full
+        # k~ < k: the per-tile semantics of ref.tile_topk_ref
+        fs, fi = TK.ash_score_topk_cuda(*args, qterm, rowterm, b=payload.b,
+                                        k=10, k_tilde=4, metric=metric)
+        ws, wi = ref.tile_topk_ref(got, torch.ones(N, dtype=torch.bool,
+                                                   device=dev), 10, 4)
+        exact_tiles = bool(torch.equal(fs, ws) and torch.equal(fi, wi))
+        check(exact_tiles, f"{metric}: fused k~ < k != per-tile selection")
         compare[metric] = dict(max_abs_err=float(err.max()),
                                max_err_over_bound=ratio,
                                max_bound=float(tol.max()),
                                topk_id_mismatch=int(differ.sum()),
-                               fused_equals_sorted=exact_eq)
+                               fused_equals_sorted=exact_eq,
+                               fused_ascending_equals_sorted=exact_asc,
+                               fused_k_tilde_below_k_equals_tiles=exact_tiles)
         log("compare", metric=metric, **compare[metric])
     del V_abs, Amat, bias, tol, err, got, want
     results["compare"] = compare
@@ -863,6 +944,27 @@ def main() -> int:
             exact6.append(bool(torch.equal(fs, ms_)
                                and torch.equal(fi, mi.to(torch.int32))))
         check(all(exact6), f"{metric}: fused coarse != sorted {exact6}")
+        order = torch.sort(c[0], stable=True).indices
+        a_args, a_qt, a_rt = ascending_operands(
+            cargs, qterm, rowterm, (0, 4, 5, 6), (1, 2, 3, 7), order)
+        a_full = TK.ash_score_coarse_cuda(*a_args, a_qt, a_rt, b=pl.b,
+                                          metric=metric)
+        check(bool((a_full[0, 1:] >= a_full[0, :-1]).all()),
+              f"{metric}: reordered coarse rows not ascending")
+        fs, fi = TK.ash_score_coarse_topk_cuda(*a_args, a_qt, a_rt, b=pl.b,
+                                               k=L, metric=metric)
+        ms_, mi = ref.stable_top_k(a_full, L)
+        exact6_asc = bool(torch.equal(fs, ms_)
+                          and torch.equal(fi, mi.to(torch.int32)))
+        check(exact6_asc, f"{metric}: fused coarse != sorted, ascending")
+        del a_args, a_full
+        fs, fi = TK.ash_score_coarse_topk_cuda(*cargs, qterm, rowterm,
+                                               b=pl.b, k=10, k_tilde=4,
+                                               metric=metric)
+        ws, wi = ref.tile_topk_ref(c, torch.ones(N, dtype=torch.bool,
+                                                 device=dev), 10, 4)
+        exact6_tiles = bool(torch.equal(fs, ws) and torch.equal(fi, wi))
+        check(exact6_tiles, f"{metric}: fused coarse k~ < k != per-tile")
         ps6, _ = ref.ash_score_coarse_topk_ref(
             *cargs, qterm, rowterm, None, b=pl.b, k=L, metric=metric)
         fs, _ = TK.ash_score_coarse_topk_cuda(*cargs, qterm, rowterm,
@@ -876,6 +978,8 @@ def main() -> int:
             gather_fused_equals_sorted=exact4,
             coarse_bit_equal_plain=exact5,
             coarse_fused_equals_sorted=exact6,
+            coarse_fused_ascending_equals_sorted=exact6_asc,
+            coarse_fused_k_tilde_below_k_equals_tiles=exact6_tiles,
             live_pairs=int(live.sum()), R=int(cand.shape[1]))
         log("compare_gather_coarse", metric=metric, **compare_b[metric])
     del Amat, bias, tol, dense, g, gp, c, cp
@@ -902,7 +1006,9 @@ def main() -> int:
         (ids_fused if r < N_REQ else ids_rerank).append(ids)
     wall = time.perf_counter() - t0
     launches = dict(TK.launch_counts)
-    check(launches["ash_score_topk"] >= N_REQ,
+    # one scan and at most one merge launch per fused request
+    check(launches["ash_score_topk"] == N_REQ
+          and launches["ash_topk_merge"] <= N_REQ,
           f"fused kernel launches {launches}")
     check(launches["ash_score"] >= N_RERANK_REQ,
           f"materializing kernel launches {launches}")
@@ -948,8 +1054,14 @@ def main() -> int:
             lat.append(start.elapsed_time(end))
             ids_r.append(ids)
         wall = time.perf_counter() - t0
-        delta = {k: TK.launch_counts[k] - before[k] for k in kernels}
-        check(all(v >= N_ROUTE_REQ for v in delta.values()),
+        delta = {k: TK.launch_counts[k] - before[k]
+                 for k in kernels + ("ash_score_topk",
+                                     "ash_score_coarse_topk",
+                                     "ash_topk_merge")}
+        fused = delta["ash_score_topk"] + delta["ash_score_coarse_topk"]
+        check(all(delta[k] >= N_ROUTE_REQ for k in kernels)
+              and fused in (0, N_ROUTE_REQ)
+              and delta["ash_topk_merge"] <= fused,
               f"{name}: launches {delta} over {N_ROUTE_REQ} requests")
         route_ids[name] = torch.cat(ids_r)
         stream[name] = dict(p50_ms=pct(lat, 50), p99_ms=pct(lat, 99),
@@ -1026,11 +1138,6 @@ def main() -> int:
     qp = args[1]
     flops = 2 * REQ_M * n * d_pad + 3 * REQ_M * n
     in_bytes = (n * wd * 4 + REQ_M * d_pad * 4 + 3 * n * 4 + REQ_M * C * 4)
-    n_blocks, k_tilde, _ = ref.topk_geometry(n, K)
-    strip_vals = torch.randn(REQ_M, n_blocks * k_tilde, device=dev)
-    strip_ids = torch.randperm(n, device=dev)[:n_blocks * k_tilde].to(
-        torch.int32).expand(REQ_M, -1).contiguous()
-    merge_ms = event_ms(lambda: ref.merge_strip(strip_vals, strip_ids, K))
     rows = []
     for name, fn, plain_fn, lib_fn, lib_call, out_bytes, line in (
         ("ash_score",
@@ -1130,8 +1237,47 @@ def main() -> int:
     results["kernels"] = rows
     results["gather_shape"] = dict(R=R, live_pairs=pairs,
                                    distinct_live_rows=uniq)
-    results["fused_strip"] = dict(candidates_per_query=n_blocks * k_tilde,
-                                  merge_ms=merge_ms)
+    # kernels 2 and 6: the scan alone and the merge alone, on the strip
+    # the scan really emits; the merge kernel EQUAL to its plain version
+    # there.  ref.merge_strip is timed at kernel 4's strip, its one user.
+    fused_split = {}
+    for row in rows:
+        if row["name"] not in ("ash_score_topk", "ash_score_coarse_topk"):
+            continue
+        fn = (lambda: TK.ash_score_topk_cuda(*args, b=payload.b, k=K)) if (
+            row["name"] == "ash_score_topk") else (
+            lambda: TK.ash_score_coarse_topk_cuda(*cargs, b=payload.b, k=L))
+        kk = K if row["name"] == "ash_score_topk" else L
+        keys, run = capture_strip(fn)
+        got_m = TK.ash_topk_merge_cuda(keys, kk, run)
+        want_m = ref.merge_keys_ref(keys, kk)
+        check(torch.equal(got_m[0], want_m[0])
+              and torch.equal(got_m[1], want_m[1]),
+              f"{row['name']}: merge kernel != ref.merge_strip")
+        n_spans, per, _ = ref.span_geometry(
+            n, kk, None, 2 * torch.cuda.get_device_properties(
+                0).multi_processor_count)
+        fused_split[row["name"]] = dict(
+            spans=n_spans, tiles_per_span=per,
+            keys_per_query=int(keys.shape[1]),
+            valid_keys=int((keys != -1).sum()),
+            scan_ms=scan_only_ms(fn),
+            merge_ms=event_ms(lambda: TK.ash_topk_merge_cuda(keys, kk, run)),
+            merge_plain_ms=event_ms(lambda: ref.merge_keys_ref(keys, kk)),
+            merge_equals_plain=True)
+        row["merge_launches"] = (launches if row["name"] == "ash_score_topk"
+                                 else launches_b)["ash_topk_merge"]
+        row.update(scan_ms=fused_split[row["name"]]["scan_ms"],
+                   merge_ms=fused_split[row["name"]]["merge_ms"])
+    g_blocks, g_tilde, _ = ref.topk_geometry(R, K)
+    strip_vals = torch.randn(REQ_M, g_blocks * g_tilde, device=dev)
+    strip_ids = torch.randperm(REQ_M * g_blocks * g_tilde, device=dev).to(
+        torch.int32).reshape(REQ_M, -1)
+    results["fused_strip"] = dict(
+        kernels_2_6=fused_split,
+        kernel4_candidates_per_query=g_blocks * g_tilde,
+        kernel4_merge_strip_ms=event_ms(
+            lambda: ref.merge_strip(strip_vals, strip_ids, K)))
     log("fused_strip", **results["fused_strip"])
     log("gather_shape", **results["gather_shape"])
     del V32, Vg, V8
@@ -1143,6 +1289,9 @@ def main() -> int:
     results["profile_ivf_request"] = profile_requests(
         lambda q: ivf.search(q, k=K, nprobe=NPROBE), queries)
     log("profile_ivf", **results["profile_ivf_request"])
+    results["profile_coarse_request"] = profile_requests(
+        lambda q: index.search(q, k=10, coarse="int8"), queries)
+    log("profile_coarse", **results["profile_coarse_request"])
 
     # -- 8. save, load, search again -------------------------------------
     save_dir = ROOT / "build" / "chip_smoke" / "idx"

@@ -1,4 +1,5 @@
-"""Wrappers of the ASH scan kernels (``csrc/ash_{score,gather,coarse}.cu``).
+"""Wrappers of the ASH scan kernels (``csrc/ash_{score,gather,coarse}.cu``)
+and of the strip merge of the fused scans (``csrc/ash_select.cu``).
 
 Each wrapper replaces one function of ``repro.kernels.ash_score``:
 
@@ -11,6 +12,7 @@ wrapper                        replaces                         source
 ``ash_score_gather_topk_cuda`` ``ash_score_gather_topk_pallas`` ash_gather
 ``ash_score_coarse_cuda``      ``ash_score_coarse_pallas``      ash_coarse
 ``ash_score_coarse_topk_cuda`` ``ash_score_coarse_topk_pallas`` ash_coarse
+``ash_topk_merge_cuda``        the merge of kernels 2 and 6     ash_select
 =============================  ===============================  ==========
 
 For a CUDA tensor a wrapper launches its kernel on the current stream
@@ -19,11 +21,15 @@ from ``repro_torch.kernels.ref``.  ``launch_counts`` counts launches,
 one per kernel launch and nowhere else, so a run can show which
 kernels its main path went through.
 
-Bound and design notes are in the CUDA sources.  The fused kernels'
-per-tile candidates are merged here by two stable sorts (by id or
-candidate position, then by score), which reproduces the reference's
-two-key ``lax.sort``; the gathered selection then maps positions back
-through the candidate rows.
+Bound and design notes are in the CUDA sources.  The fused dense and
+coarse scans (kernels 2 and 6) emit a strip of 64-bit selection keys,
+one sorted list per span of tiles (``ref.span_geometry``), and
+``ash_topk_merge_cuda`` reduces it to the top-k with one more launch
+(``csrc/ash_select.cu``, counted as ``ash_topk_merge``).  The gathered
+scan's per-tile candidates (kernel 4) are merged here by two stable
+sorts (by candidate position, then by score), which reproduces the
+reference's two-key ``lax.sort``, and map back through the candidate
+rows.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ launch_counts = {
     "ash_score": 0, "ash_score_topk": 0,
     "ash_score_gather": 0, "ash_score_gather_topk": 0,
     "ash_score_coarse": 0, "ash_score_coarse_topk": 0,
+    "ash_topk_merge": 0,
 }
 
 _P = ctypes.c_void_p
@@ -47,12 +54,14 @@ _I = ctypes.c_int
 # function ends with the stream pointer and returns a cudaError code
 _ENTRY_POINTS = {
     "ash_score": {"ash_score_launch": (9, 6),
-                  "ash_score_topk_launch": (11, 8)},
+                  "ash_score_topk_launch": (10, 9)},
     "ash_gather": {"ash_gather_launch": (10, 7),
                    "ash_gather_topk_launch": (11, 9)},
     "ash_coarse": {"ash_coarse_launch": (11, 6),
-                   "ash_coarse_topk_launch": (13, 8)},
+                   "ash_coarse_topk_launch": (12, 9)},
+    "ash_select": {"ash_topk_merge_launch": (3, 4)},
 }
+MERGE_MAX_K = 512  # the selection lists live in shared memory
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -121,6 +130,62 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+_sm_count: dict[int, int] = {}
+
+
+def _target_spans(device) -> int:
+    """About two 512-thread blocks per SM for each query chunk."""
+    i = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if i not in _sm_count:
+        _sm_count[i] = torch.cuda.get_device_properties(
+            i).multi_processor_count
+    return 2 * _sm_count[i]
+
+
+def ash_topk_merge_cuda(keys: torch.Tensor, k: int, run: int):
+    """(m, k) f32 scores and int32 ids of a (m, width) int64 strip of
+    selection keys (``ref.make_keys``; valid keys unique per row), each
+    row width / run runs of ``run`` keys in ascending unsigned order
+    (the fused scans' span lists): the top-k by (score desc, id asc),
+    (-inf, -1) past the valid keys.  On the card one launch of
+    ``ash_topk_merge_kernel``, which takes a first bound from the runs'
+    heads; k is at most ``MERGE_MAX_K`` there."""
+    if keys.device.type == "cpu":
+        return ref.merge_keys_ref(keys, k)
+    m, width = keys.shape
+    if keys.dtype != torch.int64 or not keys.is_contiguous():
+        raise ValueError(f"keys: want contiguous int64, got {keys.dtype}")
+    if run < 1 or width % run:
+        raise ValueError(f"run={run}: want runs that tile the {width} keys")
+    if not 1 <= k <= MERGE_MAX_K:
+        raise ValueError(f"k={k}: the strip merge takes 1 <= k <= "
+                         f"{MERGE_MAX_K}; use the materializing kernel")
+    vals = torch.empty(m, k, dtype=torch.float32, device=keys.device)
+    ids = torch.empty(m, k, dtype=torch.int32, device=keys.device)
+    if m == 0:
+        return vals, ids
+    _launch("ash_select", "ash_topk_merge_launch", "ash_topk_merge",
+            _ptr(keys), _ptr(vals), _ptr(ids), m, width, k, run,
+            _stream(keys.device))
+    return vals, ids
+
+
+def _fused_select(launch, n, m, k, k_tilde, device):
+    """Run a fused scan into a key strip (``launch(strip, L,
+    tiles_per_span, n_spans)``), then merge it: (m, k) scores, ids."""
+    n_spans, per, L = ref.span_geometry(n, k, k_tilde, _target_spans(device))
+    if k > MERGE_MAX_K:
+        raise ValueError(f"k={k}: the strip merge takes k <= "
+                         f"{MERGE_MAX_K}; use the materializing kernel")
+    if m == 0:
+        return (torch.empty(0, k, dtype=torch.float32, device=device),
+                torch.empty(0, k, dtype=torch.int32, device=device))
+    strip = torch.empty(m, n_spans * L, dtype=torch.int64, device=device)
+    launch(strip, L, per, n_spans)
+    return ash_topk_merge_cuda(strip, k, L)
+
+
 def ash_score_cuda(
     codes, q_proj, scale, offset, cluster, ip_q_landmarks,
     qterm=None, rowterm=None, *, b: int, metric: str = "dot",
@@ -162,7 +227,8 @@ def ash_score_topk_cuda(
     ``n_valid`` masks rows at/beyond it, ``row_valid`` ((n,) bool) masks
     tombstones; both fold into one runtime mask operand.  Slots past the
     valid rows come back as (-inf, -1); k above the n_blocks * k_tilde
-    strip raises.
+    strip raises, and on the card so does k above ``MERGE_MAX_K``.  On
+    the card: one scan launch into a key strip and one merge launch.
     """
     mask = ref.row_mask(codes.shape[0], n_valid, row_valid, codes.device)
     if mask is not None:
@@ -176,27 +242,14 @@ def ash_score_topk_cuda(
            rowterm, metric, b)
     n, wd = codes.shape
     m = q_proj.shape[0]
-    # the CUDA tile is always 512 rows: for n < 512 the reference's
-    # narrower tile is the same single block
-    n_blocks, k_tilde, _ = ref.topk_geometry(n, k, k_tilde)
-    strip = n_blocks * k_tilde
-    vals = torch.empty(m, strip, dtype=torch.float32, device=codes.device)
-    ids = torch.empty(m, strip, dtype=torch.int32, device=codes.device)
-    if m == 0:
-        return vals[:, :k], ids[:, :k]
-    rc = _kernels().ash_score_topk_launch(
-        _ptr(codes), _ptr(q_proj), _ptr(scale), _ptr(offset),
-        _ptr(cluster), _ptr(ip_q_landmarks), _ptr(qterm), _ptr(rowterm),
-        _ptr(mask), _ptr(vals), _ptr(ids), n, m, wd,
-        ip_q_landmarks.shape[1], b, _METRIC_CODE[metric], k_tilde,
-        n_blocks, _stream(codes.device),
-    )
-    if rc:
-        raise RuntimeError(
-            f"ash_score_topk kernel launch failed: cudaError {rc}"
-        )
-    launch_counts["ash_score_topk"] += 1
-    return ref.merge_strip(vals, ids, k)
+    return _fused_select(
+        lambda strip, L, per, n_spans: _launch(
+            "ash_score", "ash_score_topk_launch", "ash_score_topk",
+            _ptr(codes), _ptr(q_proj), _ptr(scale), _ptr(offset),
+            _ptr(cluster), _ptr(ip_q_landmarks), _ptr(qterm), _ptr(rowterm),
+            _ptr(mask), _ptr(strip), n, m, wd, ip_q_landmarks.shape[1], b,
+            _METRIC_CODE[metric], L, per, n_spans, _stream(codes.device)),
+        n, m, k, k_tilde, codes.device)
 
 
 def _launch(source: str, fn: str, name: str, *args) -> None:
@@ -340,16 +393,12 @@ def ash_score_coarse_topk_cuda(
            rowterm, metric, b, extra=_coarse_extra(q_scale, q_corr, m),
            q_dtype=torch.int8)
     n, wd = codes.shape
-    n_blocks, k_tilde, _ = ref.topk_geometry(n, k, k_tilde)
-    strip = n_blocks * k_tilde
-    vals = torch.empty(m, strip, dtype=torch.float32, device=codes.device)
-    ids = torch.empty(m, strip, dtype=torch.int32, device=codes.device)
-    if m == 0:
-        return vals[:, :k], ids[:, :k]
-    _launch("ash_coarse", "ash_coarse_topk_launch", "ash_score_coarse_topk",
+    return _fused_select(
+        lambda strip, L, per, n_spans: _launch(
+            "ash_coarse", "ash_coarse_topk_launch", "ash_score_coarse_topk",
             _ptr(codes), _ptr(q_int8), _ptr(q_scale), _ptr(q_corr),
             _ptr(scale), _ptr(offset), _ptr(cluster), _ptr(ip_q_landmarks),
-            _ptr(qterm), _ptr(rowterm), _ptr(mask), _ptr(vals), _ptr(ids),
-            n, m, wd, ip_q_landmarks.shape[1], b, _METRIC_CODE[metric],
-            k_tilde, n_blocks, _stream(codes.device))
-    return ref.merge_strip(vals, ids, k)
+            _ptr(qterm), _ptr(rowterm), _ptr(mask), _ptr(strip), n, m, wd,
+            ip_q_landmarks.shape[1], b, _METRIC_CODE[metric], L, per,
+            n_spans, _stream(codes.device)),
+        n, m, k, k_tilde, codes.device)

@@ -6,8 +6,8 @@
 //                                                           Eq. 20 epilogue
 //                                                           + metric tail)
 //   ash_coarse_topk_kernel <- ash_score_coarse_topk_pallas (same scan +
-//                                                           partial top-k~
-//                                                           per tile)
+//                                                           running top-k~
+//                                                           per span)
 //
 // What bounds it on the H100: bytes.  A row is 32 bytes of packed b = 2
 // codes and 12 of headers, against 2*m*d_pad integer operations (2048 at
@@ -30,14 +30,16 @@
 //     order with unfused ops: dotc = acc * q_scale, biasq = bias +
 //     q_corr, dotc * scale + biasq + offset, then the metric tail; the
 //     kernel equals its plain version bit for bit;
-//   * the fused kernel reuses the dense kernel's selection: 64-bit
-//     (score desc, column asc) keys of a 512-row tile bitonic-sorted in
-//     shared memory, one runtime int32 row-validity mask operand.
+//   * the fused kernel shares the dense kernel's selection
+//     (ash_select.cuh): spans of 512-row tiles, a running top-L of 64-bit
+//     (score desc, row asc) keys behind a bound, one warp per query, one
+//     runtime int32 row-validity mask operand, and the key strip merged
+//     on the card by ash_topk_merge_kernel (ash_select.cu).
 //
 // Each C entry point launches on the given stream and returns
 // cudaGetLastError() so the wrapper can refuse a launch that failed.
 
-#include "ash_common.cuh"
+#include "ash_select.cuh"
 
 namespace {
 
@@ -168,35 +170,23 @@ __global__ void __launch_bounds__(SCORE_THREADS)
     if (m0 + i < a.m) out[(size_t)(m0 + i) * a.n + j] = s[i];
 }
 
-template <int B, int METRIC>
-__global__ void __launch_bounds__(TOPK_BLOCK_N)
+template <int B, int METRIC, int N>
+__global__ void __launch_bounds__(TOPK_BLOCK_N, 2)
     ash_coarse_topk_kernel(ScanArgs a, CoarseQ cq, int d_pad,
-                           const int32_t* __restrict__ mask, int k_tilde,
-                           int strip, float* __restrict__ vals,
-                           int32_t* __restrict__ ids) {
+                           const int32_t* __restrict__ mask, int L,
+                           int tiles_per_span,
+                           unsigned long long* __restrict__ strip) {
   extern __shared__ int4 smem_i4[];
   int32_t* q_s = reinterpret_cast<int32_t*>(smem_i4);
-  // the key array follows the query chunk, 16-byte aligned
-  unsigned long long* keys = reinterpret_cast<unsigned long long*>(
-      reinterpret_cast<char*>(smem_i4) + coarse_chunk_bytes<B>(d_pad));
   const int m0 = blockIdx.y * MT;
-  const int mc = min(MT, a.m - m0);
   load_coarse_chunk<B>(a, cq, d_pad, m0, q_s);
   __syncthreads();
-
-  const int col = threadIdx.x;
-  const int j = blockIdx.x * TOPK_BLOCK_N + col;
-  const bool valid = j < a.n && (mask == nullptr || __ldg(mask + j) != 0);
-  float s[MT] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (j < a.n) coarse_row<B, METRIC>(a, cq, j, m0, q_s, s);
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-    keys[i * TOPK_BLOCK_N + col] = valid ? make_key(s[i], col) : INVALID_KEY;
-  __syncthreads();
-
-  bitonic_sort_rows(keys, mc);
-  emit_strip(keys, mc, m0, k_tilde, strip, blockIdx.x * TOPK_BLOCK_N, vals,
-             ids);
+  // the selection state follows the query chunk, 16-byte aligned
+  span_topk<N>(a, mask, L, tiles_per_span, gridDim.x,
+            reinterpret_cast<char*>(smem_i4) + coarse_chunk_bytes<B>(d_pad),
+            strip, [&](int j, float* s) {
+              coarse_row<B, METRIC>(a, cq, j, m0, q_s, s);
+            });
 }
 
 template <int B, int METRIC>
@@ -213,19 +203,28 @@ struct LaunchCoarse {
   }
 };
 
+template <int B, int METRIC, int N>
+int launch_coarse_topk(ScanArgs a, CoarseQ cq, int d_pad, const int32_t* mask,
+                       int L, int tiles_per_span, int n_spans,
+                       unsigned long long* strip, cudaStream_t stream) {
+  const size_t smem = coarse_chunk_bytes<B>(d_pad) + span_select_bytes(L);
+  static size_t smem_set = 48 * 1024;
+  int rc = set_smem_once(ash_coarse_topk_kernel<B, METRIC, N>, smem,
+                         &smem_set);
+  if (rc) return rc;
+  dim3 grid(n_spans, (a.m + MT - 1) / MT);
+  ash_coarse_topk_kernel<B, METRIC, N><<<grid, TOPK_BLOCK_N, smem, stream>>>(
+      a, cq, d_pad, mask, L, tiles_per_span, strip);
+  return (int)cudaGetLastError();
+}
+
 template <int B, int METRIC>
 struct LaunchCoarseTopk {
   static int run(ScanArgs a, CoarseQ cq, int d_pad, const int32_t* mask,
-                 int k_tilde, int n_blocks, float* vals, int32_t* ids,
-                 cudaStream_t stream) {
-    const size_t smem = coarse_chunk_bytes<B>(d_pad) +
-                        (size_t)MT * TOPK_BLOCK_N * sizeof(unsigned long long);
-    int rc = set_smem(ash_coarse_topk_kernel<B, METRIC>, smem);
-    if (rc) return rc;
-    dim3 grid(n_blocks, (a.m + MT - 1) / MT);
-    ash_coarse_topk_kernel<B, METRIC><<<grid, TOPK_BLOCK_N, smem, stream>>>(
-        a, cq, d_pad, mask, k_tilde, n_blocks * k_tilde, vals, ids);
-    return (int)cudaGetLastError();
+                 int L, int tiles_per_span, int n_spans,
+                 unsigned long long* strip, cudaStream_t stream) {
+    SELECT_BY_LANES(L, (launch_coarse_topk<B, METRIC, LANES>(
+        a, cq, d_pad, mask, L, tiles_per_span, n_spans, strip, stream)));
   }
 };
 
@@ -259,26 +258,27 @@ int ash_coarse_launch(const void* codes, const void* q_int8,
                                 static_cast<cudaStream_t>(stream));
 }
 
-// (m, n_blocks * k_tilde) candidate strip of (score, id) into vals/ids;
-// mask may be null (every row < n valid).
+// (m, n_spans * L) strip of 64-bit keys into `strip`, as
+// ash_score_topk_launch; mask may be null (every row < n valid).
 int ash_coarse_topk_launch(const void* codes, const void* q_int8,
                            const void* q_scale, const void* q_corr,
                            const void* scale, const void* offset,
                            const void* cluster, const void* ipq,
                            const void* qterm, const void* rowterm,
-                           const void* mask, void* vals, void* ids, int n,
-                           int m, int wd, int C, int b, int metric,
-                           int k_tilde, int n_blocks, void* stream) {
-  if (b < 1 || b > 8 || n <= 0 || m <= 0 || k_tilde < 1 ||
-      k_tilde > TOPK_BLOCK_N || n_blocks * TOPK_BLOCK_N < n)
+                           const void* mask, void* strip, int n, int m,
+                           int wd, int C, int b, int metric, int L,
+                           int tiles_per_span, int n_spans, void* stream) {
+  if (b < 1 || b > 8 || n <= 0 || m <= 0 || L < 1 || L > TOPK_BLOCK_N ||
+      tiles_per_span < 1 || n_spans < 1 ||
+      (long long)n_spans * tiles_per_span * TOPK_BLOCK_N < n)
     return (int)cudaErrorInvalidValue;
   const int d_pad = wd * (32 / b);
   ScanArgs a = make_args(codes, nullptr, scale, offset, cluster, ipq, qterm,
                          rowterm, n, m, wd, C);
   return dispatch<LaunchCoarseTopk>(
       b, metric, a, make_coarse_q(q_int8, q_scale, q_corr), d_pad,
-      static_cast<const int32_t*>(mask), k_tilde, n_blocks,
-      static_cast<float*>(vals), static_cast<int32_t*>(ids),
+      static_cast<const int32_t*>(mask), L, tiles_per_span, n_spans,
+      static_cast<unsigned long long*>(strip),
       static_cast<cudaStream_t>(stream));
 }
 

@@ -1,10 +1,11 @@
 // Dense ASH scan kernels for Hopper (sm_90a): the materializing scan and
-// the scan with fused per-tile top-k selection.
+// the scan with fused top-k selection.
 //
 // Replaces (src/repro/kernels/ash_score.py):
 //   ash_score_kernel      <- ash_score_pallas       (Eq. 20 + metric tail)
-//   ash_score_topk_kernel <- ash_score_topk_pallas  (same scan + partial
-//                                                    top-k~ per tile)
+//   ash_score_topk_kernel <- ash_score_topk_pallas  (same scan + running
+//                                                    top-k~ per span; the
+//                                                    merge in ash_select.cu)
 //
 // What bounds it on the H100: fp32 operations, at the main path's shapes.
 // A row costs 2*m*d_pad FLOPs (2048 at m = 8 queries, d_pad = 128)
@@ -23,15 +24,21 @@
 //     and the epilogue uses unfused round-to-nearest ops in the plain
 //     version's order, so both kernels produce the same score for the
 //     same (query, row) element for element;
-//   * the fused kernel keeps a 512-row tile's scores in shared memory as
-//     64-bit (score desc, column asc) keys, bitonic-sorts them and emits
-//     only the first k~ per query: the (m, n) score matrix never reaches
-//     device memory.
+//   * the fused kernel never writes the (m, n) score matrix: a block
+//     walks a span of 512-row tiles (about two blocks per SM and query
+//     chunk when k <= k~, one tile when k~ < k); each tile's 64-bit
+//     (score desc, row asc) keys pass through shared memory to one warp
+//     per query, which keeps a running top-L (L = min(k, k~)) behind a
+//     bound (ash_select.cuh): a scored row costs one compare per query,
+//     and only the keys that beat the bound are sorted (in registers)
+//     and merged.  Each span emits its L keys to a key strip, which one
+//     launch of ash_topk_merge_kernel (ash_select.cu) reduces to the
+//     top-k on the card.
 //
 // Each C entry point launches on the given stream and returns
 // cudaGetLastError() so the wrapper can refuse a launch that failed.
 
-#include "ash_common.cuh"
+#include "ash_select.cuh"
 
 namespace {
 
@@ -105,34 +112,21 @@ __global__ void __launch_bounds__(SCORE_THREADS)
     if (m0 + i < a.m) out[(size_t)(m0 + i) * a.n + j] = s[i];
 }
 
-template <int B, int METRIC>
-__global__ void __launch_bounds__(TOPK_BLOCK_N)
+template <int B, int METRIC, int N>
+__global__ void __launch_bounds__(TOPK_BLOCK_N, 2)
     ash_score_topk_kernel(ScanArgs a, int d_pad,
-                          const int32_t* __restrict__ mask, int k_tilde,
-                          int strip, float* __restrict__ vals,
-                          int32_t* __restrict__ ids) {
+                          const int32_t* __restrict__ mask, int L,
+                          int tiles_per_span,
+                          unsigned long long* __restrict__ strip) {
   extern __shared__ float4 smem_f4[];
   float* q_s = reinterpret_cast<float*>(smem_f4);
-  unsigned long long* keys =
-      reinterpret_cast<unsigned long long*>(q_s + d_pad * MT);
   const int m0 = blockIdx.y * MT;
-  const int mc = min(MT, a.m - m0);
   load_query_chunk(a, d_pad, m0, q_s);
   __syncthreads();
-
-  const int col = threadIdx.x;
-  const int j = blockIdx.x * TOPK_BLOCK_N + col;
-  const bool valid = j < a.n && (mask == nullptr || __ldg(mask + j) != 0);
-  float s[MT] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (j < a.n) score_row<B, METRIC>(a, j, m0, q_s, s);
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-    keys[i * TOPK_BLOCK_N + col] = valid ? make_key(s[i], col) : INVALID_KEY;
-  __syncthreads();
-
-  bitonic_sort_rows(keys, mc);
-  emit_strip(keys, mc, m0, k_tilde, strip, blockIdx.x * TOPK_BLOCK_N, vals,
-             ids);
+  span_topk<N>(a, mask, L, tiles_per_span, gridDim.x, q_s + d_pad * MT,
+               strip, [&](int j, float* s) {
+                 score_row<B, METRIC>(a, j, m0, q_s, s);
+               });
 }
 
 template <int B, int METRIC>
@@ -147,18 +141,29 @@ struct LaunchScore {
   }
 };
 
+template <int B, int METRIC, int N>
+int launch_topk(ScanArgs a, int d_pad, const int32_t* mask, int L,
+                int tiles_per_span, int n_spans, unsigned long long* strip,
+                cudaStream_t stream) {
+  const size_t smem = (size_t)d_pad * MT * sizeof(float) +
+                      span_select_bytes(L);
+  static size_t smem_set = 48 * 1024;
+  int rc = set_smem_once(ash_score_topk_kernel<B, METRIC, N>, smem,
+                         &smem_set);
+  if (rc) return rc;
+  dim3 grid(n_spans, (a.m + MT - 1) / MT);
+  ash_score_topk_kernel<B, METRIC, N><<<grid, TOPK_BLOCK_N, smem, stream>>>(
+      a, d_pad, mask, L, tiles_per_span, strip);
+  return (int)cudaGetLastError();
+}
+
 template <int B, int METRIC>
 struct LaunchTopk {
-  static int run(ScanArgs a, int d_pad, const int32_t* mask, int k_tilde,
-                 int n_blocks, float* vals, int32_t* ids, cudaStream_t stream) {
-    const size_t smem = (size_t)d_pad * MT * sizeof(float) +
-                        (size_t)MT * TOPK_BLOCK_N * sizeof(unsigned long long);
-    int rc = set_smem(ash_score_topk_kernel<B, METRIC>, smem);
-    if (rc) return rc;
-    dim3 grid(n_blocks, (a.m + MT - 1) / MT);
-    ash_score_topk_kernel<B, METRIC><<<grid, TOPK_BLOCK_N, smem, stream>>>(
-        a, d_pad, mask, k_tilde, n_blocks * k_tilde, vals, ids);
-    return (int)cudaGetLastError();
+  static int run(ScanArgs a, int d_pad, const int32_t* mask, int L,
+                 int tiles_per_span, int n_spans, unsigned long long* strip,
+                 cudaStream_t stream) {
+    SELECT_BY_LANES(L, (launch_topk<B, METRIC, LANES>(
+        a, d_pad, mask, L, tiles_per_span, n_spans, strip, stream)));
   }
 };
 
@@ -179,25 +184,27 @@ int ash_score_launch(const void* codes, const void* q_proj, const void* scale,
                                static_cast<cudaStream_t>(stream));
 }
 
-// (m, n_blocks * k_tilde) candidate strip of (score, id) into vals/ids;
-// mask may be null (every row < n valid).
+// (m, n_spans * L) strip of 64-bit keys into `strip`: span s of
+// tiles_per_span 512-row tiles gives its best L keys per query, sorted,
+// INVALID past its valid rows; mask may be null (every row < n valid).
 int ash_score_topk_launch(const void* codes, const void* q_proj,
                           const void* scale, const void* offset,
                           const void* cluster, const void* ipq,
                           const void* qterm, const void* rowterm,
-                          const void* mask, void* vals, void* ids, int n,
-                          int m, int wd, int C, int b, int metric, int k_tilde,
-                          int n_blocks, void* stream) {
-  if (b < 1 || b > 8 || n <= 0 || m <= 0 || k_tilde < 1 ||
-      k_tilde > TOPK_BLOCK_N || n_blocks * TOPK_BLOCK_N < n)
+                          const void* mask, void* strip, int n, int m, int wd,
+                          int C, int b, int metric, int L, int tiles_per_span,
+                          int n_spans, void* stream) {
+  if (b < 1 || b > 8 || n <= 0 || m <= 0 || L < 1 || L > TOPK_BLOCK_N ||
+      tiles_per_span < 1 || n_spans < 1 ||
+      (long long)n_spans * tiles_per_span * TOPK_BLOCK_N < n)
     return (int)cudaErrorInvalidValue;
   const int d_pad = wd * (32 / b);
   ScanArgs a = make_args(codes, q_proj, scale, offset, cluster, ipq, qterm,
                          rowterm, n, m, wd, C);
   return dispatch<LaunchTopk>(b, metric, a, d_pad,
-                              static_cast<const int32_t*>(mask), k_tilde,
-                              n_blocks, static_cast<float*>(vals),
-                              static_cast<int32_t*>(ids),
+                              static_cast<const int32_t*>(mask), L,
+                              tiles_per_span, n_spans,
+                              static_cast<unsigned long long*>(strip),
                               static_cast<cudaStream_t>(stream));
 }
 

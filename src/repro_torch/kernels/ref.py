@@ -231,6 +231,89 @@ def merge_strip(vals: torch.Tensor, ids: torch.Tensor, k: int):
     return out_s, torch.where(out_i == ID_SENTINEL, -1, out_i)
 
 
+def span_geometry(n: int, k: int, k_tilde=None, target_spans: int = 264):
+    """(n_spans, tiles_per_span, L) of the card's fused selection.
+
+    Tiles are TOPK_BLOCK_N rows; a span is ``tiles_per_span`` whole
+    tiles, the last span ragged, and the spans cover every row.  Each
+    span keeps its best L = min(k, k_tilde) keys per query.  Where
+    k <= k_tilde only the merged top-k is observable, which is the
+    exact top-k whatever the spans, so about ``target_spans`` spans
+    share the tiles; where k_tilde < k a span is one tile, which keeps
+    the per-tile strip of :func:`tile_topk_ref`.  Refuses what
+    :func:`topk_geometry` refuses."""
+    _, k_tilde, _ = topk_geometry(n, k, k_tilde)
+    n_tiles = -(-n // TOPK_BLOCK_N)
+    per = -(-n_tiles // max(1, target_spans)) if k <= k_tilde else 1
+    return -(-n_tiles // per), per, min(k, k_tilde)
+
+
+def span_strip_ref(scores: torch.Tensor, valid: torch.Tensor, k: int,
+                   k_tilde=None, target_spans: int = 264):
+    """The strip the fused kernels emit, from a materialized (m, n)
+    score matrix: per span of :func:`span_geometry`, the best L valid
+    columns by (score desc, column asc), as (m, n_spans * L) f32 scores
+    and int32 columns, (-inf, sentinel) past a span's valid columns.
+    ``valid`` is (n,) or (m, n) bool; columns scoring -inf still enter,
+    invalid ones never."""
+    m, n = scores.shape
+    n_spans, per, L = span_geometry(n, k, k_tilde, target_spans)
+    span_n = per * TOPK_BLOCK_N
+    pad = n_spans * span_n - n
+    valid = valid.to(device=scores.device, dtype=torch.bool).expand(m, n)
+    valid = torch.nn.functional.pad(valid, (0, pad), value=False)
+    scores = torch.nn.functional.pad(scores, (0, pad), value=float("-inf"))
+    ids = torch.arange(n_spans * span_n, device=scores.device).expand(m, -1)
+    # invalid columns last within a span, then (score desc, column asc)
+    keys = torch.where(valid, scores, float("-inf")).reshape(m, n_spans, -1)
+    order = torch.sort(keys, dim=2, descending=True, stable=True).indices
+    second = torch.sort((~valid.reshape(m, n_spans, -1).gather(2, order))
+                        .to(torch.int8), dim=2, stable=True).indices
+    order = order.gather(2, second)[:, :, :L]
+    ok = valid.reshape(m, n_spans, -1).gather(2, order)
+    vals = torch.where(ok, keys.gather(2, order), float("-inf"))
+    cols = torch.where(ok, ids.reshape(m, n_spans, -1).gather(2, order),
+                       ID_SENTINEL)
+    return vals.reshape(m, -1), cols.reshape(m, -1).to(torch.int32)
+
+
+_U32 = 0xFFFFFFFF
+
+
+def make_keys(vals: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The kernels' 64-bit selection keys (``make_key`` in
+    ``csrc/ash_common.cuh``) as int64 bit patterns: ascending unsigned
+    key == (score desc, id asc), signed zeros folded; sentinel ids give
+    the INVALID key (all ones, -1 as int64)."""
+    u = vals.to(torch.float32).contiguous().view(torch.int32).to(
+        torch.int64) & _U32
+    u = torch.where((u & 0x7FFFFFFF) == 0, 0, u)
+    order = torch.where((u & 0x80000000) != 0, ~u & _U32, u | 0x80000000)
+    key = ((~order & _U32) << 32) | (ids.to(torch.int64) & _U32)
+    return torch.where(ids == ID_SENTINEL, -1, key)
+
+
+def keys_to_strip(keys: torch.Tensor):
+    """Inverse of :func:`make_keys`: (f32 scores, int32 ids), the
+    INVALID key as (-inf, sentinel)."""
+    order = ~(keys >> 32) & _U32
+    u = torch.where((order & 0x80000000) != 0, order & 0x7FFFFFFF,
+                    ~order & _U32)
+    vals = torch.where(u >= 2**31, u - 2**32, u).to(torch.int32).view(
+        torch.float32)
+    ids = torch.where(keys & _U32 >= 2**31, (keys & _U32) - 2**32,
+                      keys & _U32).to(torch.int32)
+    invalid = keys == -1
+    return (torch.where(invalid, float("-inf"), vals),
+            torch.where(invalid, ID_SENTINEL, ids))
+
+
+def merge_keys_ref(keys: torch.Tensor, k: int):
+    """Plain version of the card's strip merge (``ash_topk_merge``):
+    :func:`merge_strip` of the decoded key strip."""
+    return merge_strip(*keys_to_strip(keys), k)
+
+
 def tile_topk_ref(scores: torch.Tensor, valid: torch.Tensor, k: int,
                   k_tilde=None):
     """The fused kernels' selection over a materialized (m, n) score

@@ -266,6 +266,179 @@ def test_coarse_fused_equals_sorted_materialized(cuda, metric, b):
         assert torch.equal(ti, vi.to(torch.int32)), (n_valid, rv is None)
 
 
+# -- kernels 2 and 6: the span selection and the strip merge ------------
+# Row operands of the dense and coarse argument lists (permuted together)
+_DENSE_ROWS, _COARSE_ROWS = (0, 2, 3, 4, 7), (0, 4, 5, 6, 9)
+
+
+def _mask_cases(n, device, seed=0):
+    rv = torch.rand(n, device=device, generator=torch.Generator(
+        device=device).manual_seed(seed)) > 0.3
+    nv = n - n // 7
+    return ((None, None), (None, rv), (nv, None), (nv, rv))
+
+
+def _assert_fused_exact(fused, full, n, k, k_tilde=None):
+    """``fused(n_valid, row_valid)`` EQUALS a stable top-k of the
+    materialized ``full`` scores under the four masks; exactly one scan
+    and one merge launch each."""
+    for n_valid, rv in _mask_cases(n, full.device):
+        before = dict(TK.launch_counts)
+        ts, ti = fused(n_valid, rv)
+        torch.cuda.synchronize()
+        scans = sum(TK.launch_counts[x] - before[x] for x in (
+            "ash_score_topk", "ash_score_coarse_topk"))
+        assert scans == 1
+        assert TK.launch_counts["ash_topk_merge"] == \
+            before["ash_topk_merge"] + 1
+        vs, vi = TR.stable_top_k(TR.mask_rows_ref(full, n_valid, rv), k)
+        valid = TR.row_mask(n, n_valid, rv, full.device)
+        nv = n if valid is None else int(valid.sum())
+        vi = torch.where(torch.arange(vi.shape[1], device=vi.device) < nv,
+                         vi, -1)
+        assert torch.equal(ts, vs), (n_valid, rv is None)
+        assert torch.equal(ti, vi.to(torch.int32)), (n_valid, rv is None)
+
+
+def _ascending(args, full, rows, q_ops):
+    """Rows reordered by query 0's score ascending and every query made
+    query 0: each span sees improving keys, so every key passes the
+    threshold and the queues fill every tile."""
+    order = torch.sort(full[0], stable=True).indices
+    out = list(args)
+    for t in rows:
+        if out[t] is not None:
+            out[t] = out[t][order].contiguous()
+    for t in q_ops:
+        if out[t] is not None:
+            out[t] = out[t][:1].expand_as(out[t]).contiguous()
+    return out
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_fused_ascending_rows(cuda, metric):
+    n, m, k = 6000, 8, 100
+    args = _args(21, 2, 100, n, m, 16, metric, cuda)
+    args = _ascending(args, TK.ash_score_cuda(*args, b=2, metric=metric),
+                      _DENSE_ROWS, (1, 5, 6))
+    full = TK.ash_score_cuda(*args, b=2, metric=metric)
+    assert bool((full[0, 1:] >= full[0, :-1]).all())
+    _assert_fused_exact(lambda nv, rv: TK.ash_score_topk_cuda(
+        *args, nv, rv, b=2, k=k, metric=metric), full, n, k)
+
+
+@pytest.mark.parametrize("b", [2, 8])
+def test_coarse_fused_ascending_rows(cuda, b):
+    n, m, k = 6000, 8, 32
+    args = _coarse_args(b + 40, b, 64, n, m, 16, "dot", cuda)
+    args = _ascending(args, TK.ash_score_coarse_cuda(*args, b=b),
+                      _COARSE_ROWS, (1, 2, 3, 7, 8))
+    full = TK.ash_score_coarse_cuda(*args, b=b)
+    assert bool((full[0, 1:] >= full[0, :-1]).all())
+    _assert_fused_exact(lambda nv, rv: TK.ash_score_coarse_topk_cuda(
+        *args, nv, rv, b=b, k=k), full, n, k)
+
+
+# (n, m, k, k_tilde): the clip k~ = 512, n below a tile, n not a
+# multiple of 512, 13 queries (a ragged second chunk)
+_SHAPES = [(6000, 13, 512, None), (300, 13, 50, None), (5001, 13, 100, 600),
+           (6007, 13, 100, None), (513, 3, 1, None), (20000, 9, 128, 128),
+           (4000, 8, 64, None), (4000, 8, 65, None), (6000, 8, 257, None),
+           (6000, 8, 200, None), (6000, 8, 33, None)]
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("n,m,k,k_tilde", _SHAPES)
+def test_fused_shapes(cuda, metric, n, m, k, k_tilde):
+    args = _args(n + k, 2, 100, n, m, 16, metric, cuda)
+    args[3][[5, n // 2]] = float("-inf")  # rows whose score is -inf
+    full = TK.ash_score_cuda(*args, b=2, metric=metric)
+    _assert_fused_exact(lambda nv, rv: TK.ash_score_topk_cuda(
+        *args, nv, rv, b=2, k=k, k_tilde=k_tilde, metric=metric), full, n, k)
+
+
+@pytest.mark.parametrize("b", [1, 2, 4, 8])
+@pytest.mark.parametrize("n,m,k,k_tilde", _SHAPES)
+def test_coarse_fused_shapes(cuda, b, n, m, k, k_tilde):
+    args = _coarse_args(n + b, b, 64, n, m, 16, "l2", cuda)
+    full = TK.ash_score_coarse_cuda(*args, b=b, metric="l2")
+    _assert_fused_exact(lambda nv, rv: TK.ash_score_coarse_topk_cuda(
+        *args, nv, rv, b=b, k=k, k_tilde=k_tilde, metric="l2"), full, n, k)
+
+
+@pytest.mark.parametrize("coarse", [False, True])
+@pytest.mark.parametrize("n,k,k_tilde", [(6000, 10, 4), (6000, 100, 30),
+                                         (1537, 9, 3)])
+def test_fused_k_tilde_below_k_is_per_tile(cuda, coarse, n, k, k_tilde):
+    """k~ < k: the per-tile semantics of ``ref.tile_topk_ref`` on the
+    kernel's own scores, under the four masks."""
+    m = 9
+    if coarse:
+        args = _coarse_args(n, 2, 64, n, m, 16, "dot", cuda)
+        full = TK.ash_score_coarse_cuda(*args, b=2)
+        fused = TK.ash_score_coarse_topk_cuda
+    else:
+        args = _args(n, 2, 100, n, m, 16, "dot", cuda)
+        for t in (0, 2, 3, 4):  # duplicate rows: ties across tiles
+            args[t][1000:1100] = args[t][0:100]
+        full = TK.ash_score_cuda(*args, b=2)
+        fused = TK.ash_score_topk_cuda
+    for n_valid, rv in _mask_cases(n, cuda, seed=1):
+        ts, ti = fused(*args, n_valid, rv, b=2, k=k, k_tilde=k_tilde)
+        valid = TR.row_mask(n, n_valid, rv, cuda)
+        ws, wi = TR.tile_topk_ref(
+            full, torch.ones(n, dtype=torch.bool, device=cuda)
+            if valid is None else valid, k, k_tilde)
+        assert torch.equal(ts, ws) and torch.equal(ti, wi), n_valid
+
+
+@pytest.mark.parametrize("n_spans,L,k", [
+    (400, 1, 1), (4, 100, 100), (50, 100, 100), (245, 100, 100),
+    (245, 32, 32), (264, 32, 32), (30, 300, 300), (40, 512, 512),
+    (3, 100, 400), (64, 64, 64), (63, 65, 65), (45, 200, 200),
+    (40, 10, 100), (3, 200, 150), (300, 50, 50), (7, 64, 64),
+    (1954, 4, 10)])
+def test_merge_kernel_vs_merge_strip(cuda, n_spans, L, k):
+    """The strip merge against ``ref.merge_strip`` on strips of sorted
+    span lists (the fused scans' output; the kernel takes a first bound
+    from the lists' heads): tied and -inf scores, exhausted (-inf,
+    sentinel) tails, a row of ties, a row of -inf and sentinels."""
+    m = 5
+    rng = np.random.default_rng(n_spans * L + k)
+    width = n_spans * L
+    vals = rng.integers(-40, 40, (m, width)).astype(np.float32)
+    vals[rng.random((m, width)) < 0.03] = -np.inf
+    ids = np.stack([rng.permutation(5 * width)[:width] for _ in range(m)])
+    dead = rng.random((m, width)) < 0.1
+    vals[dead], ids[dead] = -np.inf, TR.ID_SENTINEL
+    vals[1] = -np.inf  # a row of -inf and sentinels
+    vals[2], ids[2] = 3.0, rng.permutation(width)  # a row of ties
+    keys = TR.make_keys(torch.from_numpy(vals),
+                        torch.from_numpy(ids.astype(np.int32)))
+    keys = np.sort(keys.numpy().view(np.uint64).reshape(m, n_spans, L),
+                   axis=2).reshape(m, width).view(np.int64)
+    keys = torch.from_numpy(keys).to(cuda)
+    before = TK.launch_counts["ash_topk_merge"]
+    got = TK.ash_topk_merge_cuda(keys, k, L)
+    torch.cuda.synchronize()
+    assert TK.launch_counts["ash_topk_merge"] == before + 1
+    want = TR.merge_keys_ref(keys.cpu(), min(k, width))
+    assert torch.equal(got[0][:, :width].cpu(), want[0])
+    assert torch.equal(got[1][:, :width].cpu(), want[1])
+    if k > width:
+        assert (got[1][:, width:] == -1).all()
+
+
+def test_merge_kernel_refuses_large_k(cuda):
+    keys = torch.zeros(2, 100, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="strip merge"):
+        TK.ash_topk_merge_cuda(keys, TK.MERGE_MAX_K + 1, 100)
+    with pytest.raises(ValueError, match="keys"):
+        TK.ash_topk_merge_cuda(keys.int(), 10, 100)
+    with pytest.raises(ValueError, match="run"):
+        TK.ash_topk_merge_cuda(keys, 10, 30)
+
+
 def test_ivf_on_card(cuda):
     """A small IVF index on the card: kernel route == plain route ids,
     a single-row search equals its row of the batch search, coarse with

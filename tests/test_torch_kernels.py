@@ -209,7 +209,9 @@ def test_cpu_path_counts_no_launch_and_check_refuses():
     TK.ash_score_coarse_cuda(args[0], qi, ones, ones, *args[2:], b=2)
     TK.ash_score_coarse_topk_cuda(args[0], qi, ones, ones, *args[2:], b=2,
                                   k=3)
-    assert len(TK.launch_counts) == 6
+    TK.ash_topk_merge_cuda(TR.make_keys(torch.zeros(2, 4), torch.zeros(
+        2, 4, dtype=torch.int32)), 2, 4)
+    assert len(TK.launch_counts) == 7
     assert set(TK.launch_counts.values()) == {0}
     args = list(_torch_args(a, "dot"))
     args[1] = args[1].to(torch.float64)
