@@ -12,7 +12,8 @@ for exact rerank.  Phases, one line each:
   1. device: name and power limit;
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
      nvcc, one process per source in parallel (into
-     ``build/repro_torch/``);
+     ``build/repro_torch/``), and report ``-Xptxas -v`` registers and
+     spills of kernels 7 and 4;
   3. train and encode on the card (``AshIndex.build``), train a second
      time from the same seed (the models must be bit-identical), and
      the IVF index over the same model and payload
@@ -28,33 +29,39 @@ for exact rerank.  Phases, one line each:
      their IVF candidate table at nprobe = 8 for the gathered ones):
      gathered scores within the bound of their plain version and
      bit-equal to the dense kernel's, the fused gathered selection
-     EXACTLY a stable top-k over positions of them, the coarse scan
-     bit-equal to its plain version, the fused coarse selection EXACTLY
-     a stable top-k of it under the four masks and on ascending rows,
-     and the per-tile selection for k~ < k;
+     (scan + merge, one launch each) EXACTLY a stable top-k over
+     positions of them mapped through the table, also on positions
+     ordered so that the scores ascend, for R below a tile and ragged,
+     with a query of pads only, and for k~ < k the per-tile selection,
+     and its merge with the table EQUAL to ``ref.positions_to_rows`` of
+     the merge without; the coarse scan bit-equal to its plain version,
+     the fused coarse selection EXACTLY a stable top-k of it under the
+     four masks and on ascending rows, and the per-tile selection for
+     k~ < k;
   5. a request stream through ``AshIndex.search``: 125 requests of 8
      queries at k=100 (fused route) and 16 at k=10, rerank=256
      (materializing kernel + exact rerank); launch counts are zeroed
      just before and read just after: exactly one scan launch of kernel
-     2 and at most one merge launch per fused request;
+     2 and one merge launch, counted under kernel 2, per fused request;
   5b. a stream of 32 requests of 8 queries on each new route: IVF k=100
      (fused gathered), IVF k=10 rerank=256 (materializing gathered),
      flat coarse k=10 (fused coarse -> fused gathered), flat coarse k=10
      rerank=256 (materializing coarse -> materializing gathered), IVF
      coarse k=10 (plain gathered coarse -> fused gathered); counts are
      zeroed before it and each route's kernels must have launched at
-     least once per request, kernel 6 exactly once and the merge at
-     most once; a single query searched alone equals its row of the
-     batch on every route;
+     least once per request, kernels 6 and 4 exactly once, and the
+     merge exactly once per fused scan, counted under that scan's name
+     (``ash_score.merge_launches``: the rows' ``merge_launches``); a
+     single query searched alone
+     equals its row of the batch on every route;
   6. 10-recall@10/@100 against exact search, kernel route and plain
      route on the card; 6b the same for each new route;
   7. per-kernel times, bounds and library yardsticks of kernels 1-6
-     (a ``kernels`` JSON line; kernels 2 and 6 with their merge), the
+     (a ``kernels`` JSON line; kernels 2, 4 and 6 with their merge), the
      scan alone and the merge kernel alone on the strip the scan emits
-     (and the merge EQUAL to ``ref.merge_strip`` there),
-     ``ref.merge_strip`` at kernel 4's strip, and a ``torch.profiler``
-     breakdown of flat k=100, IVF and flat coarse requests (device time
-     by kernel, idle share);
+     (and the merge EQUAL to its plain version there), and a
+     ``torch.profiler`` breakdown of flat k=100, IVF and flat coarse
+     requests (device time by kernel, idle share);
   8. save, load, search again, flat and IVF: results bit-identical;
   9. LM build: llama3.2-3B (``repro_torch.configs.llama32_3b``, 28
      layers at full width, bf16 weights drawn from a seeded generator
@@ -66,7 +73,7 @@ for exact rerank.  Phases, one line each:
      at 35 edge shapes (every (b_k, b_v), ragged S, leading masked
      stretches, bias, G in {1, 3, 8}, bf16 and fp32 scales, rows not a
      multiple of 16 bytes), with its
-     time, bound and the SDPA yardstick;
+     time, bound, bound share and the SDPA yardstick;
   11. a decode stream: 32704 positions of every layer's cache filled by
      encoding seeded random K/V (``_encode_kv``), then 64 greedy
      ``decode_step``s at batch 32 (counts zeroed just before; exactly
@@ -200,9 +207,9 @@ def capture_strip(fn):
 
     merge, got = TK.ash_topk_merge_cuda, {}
 
-    def keep(keys, k, run=0):
+    def keep(keys, k, run=0, rows=None, scan=None):
         got["keys"], got["run"] = keys.clone(), run
-        return merge(keys, k, run)
+        return merge(keys, k, run, rows=rows, scan=scan)
 
     TK.ash_topk_merge_cuda = keep
     try:
@@ -218,11 +225,101 @@ def scan_only_ms(fn):
     from repro_torch.kernels import ash_score as TK
 
     merge = TK.ash_topk_merge_cuda
-    TK.ash_topk_merge_cuda = lambda keys, *_: (keys, keys)
+    TK.ash_topk_merge_cuda = lambda keys, *_, **__: (keys, keys)
     try:
         return event_ms(fn)
     finally:
         TK.ash_topk_merge_cuda = merge
+
+
+def gather_topk_cases(codes, cand, rest, qterm, rowterm, b, metric, g):
+    """Kernel 4 (with its merge) EXACTLY against a stable top-k over
+    positions of kernel 3's scores ``g`` on the candidate table
+    ``cand``, mapped through the table, in the cases its selection
+    treats apart: every query's positions ordered so that the scores
+    ascend (every key beats the running bound); k~ < k (one-tile spans:
+    ``ref.tile_topk_ref`` over positions); R below one tile and ragged;
+    a query of pads only ((-inf, -1)); and the merge with the table
+    equal to ``ref.positions_to_rows`` of the merge without."""
+    import torch
+
+    from repro_torch.kernels import ash_score as TK
+    from repro_torch.kernels import ref
+
+    def fused(rows, k, k_tilde=None):
+        return TK.ash_score_gather_topk_cuda(
+            codes, rows, *rest, qterm, rowterm, b=b, k=k, k_tilde=k_tilde,
+            metric=metric)
+
+    def exact(rows, k):
+        scores = TK.ash_score_gather_cuda(codes, rows, *rest, qterm,
+                                          rowterm, b=b, metric=metric)
+        ts, tr = fused(rows, k)
+        vs, vp = ref.stable_top_k(scores, k)
+        r = rows.gather(1, vp)
+        r = torch.where(torch.isneginf(vs) & (r < 0), -1, r)
+        return bool(torch.equal(ts, vs) and torch.equal(tr, r))
+
+    out = {}
+    order = torch.sort(g, dim=1, stable=True).indices  # pads (-inf) first
+    out["ascending"] = exact(cand.gather(1, order).contiguous(), K)
+    ts, tr = fused(cand, 10, 4)
+    ws, wp = ref.tile_topk_ref(g, cand >= 0, 10, 4)
+    out["k_tilde_below_k"] = bool(torch.equal(ts, ws) and torch.equal(
+        tr, ref.positions_to_rows(cand, wp)))
+    R = cand.shape[1]
+    out["R_300"] = exact(cand[:, :300].contiguous(), K)
+    out["R_ragged"] = exact(cand[:, :R - 77].contiguous(), K)
+    pads = cand.clone()
+    pads[0] = -1
+    out["pad_query"] = exact(pads, K)
+    ts, tr = fused(pads, K)
+    out["pad_query_exhausted"] = bool(torch.isneginf(ts[0]).all()
+                                      and (tr[0] == -1).all())
+    keys, run = capture_strip(lambda: fused(cand, K))
+    s0, p0 = TK.ash_topk_merge_cuda(keys, K, run)
+    s1, r1 = TK.ash_topk_merge_cuda(keys, K, run, rows=cand)
+    out["merge_rows_equals_positions_to_rows"] = bool(
+        torch.equal(s0, s1) and torch.equal(r1, ref.positions_to_rows(
+            cand, p0)))
+    return out
+
+
+def ptxas_report(libs, kernel, main_instance):
+    """Registers and spills (``nvcc -Xptxas -v``, in each library's build
+    log) of every instance of ``kernel``: the largest register count,
+    the instances that spill, and the main path's instance (its mangled
+    template arguments contain ``main_instance``)."""
+    import re
+
+    found = []
+    for lib in libs.values():
+        logf = lib.with_suffix(".log")
+        if not logf.exists():
+            continue
+        cur, spill = None, (0, 0)
+        for ln in logf.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                cur, spill = m.group(1), (0, 0)
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m:
+                spill = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m and cur:
+                if kernel in cur:
+                    found.append((cur, int(m.group(1)), spill))
+                cur = None
+    main = [f for f in found if main_instance in f[0]]
+    return dict(
+        instances=len(found),
+        max_registers=max([f[1] for f in found] or [0]),
+        spilling_instances=[f[0] for f in found if sum(f[2])],
+        main_instance=main[0][0] if main else None,
+        main_registers=main[0][1] if main else None,
+        main_spill_bytes=(list(main[0][2]) if main else None))
 
 
 def profile_requests(search, queries, n_prof=20):
@@ -466,7 +563,8 @@ def lm_phases(results, dev):
         edge_cases=len(edges), edge_max_abs_err=edge_err,
         splits=KA.split_geometry(N, S), ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, bound_bytes=kv_bytes,
-        library_ms=lib_ms, bound_share=bound_ms / ms)
+        library_ms=lib_ms, bound_share=bound_ms / ms,
+        ptxas=results["ptxas"]["ash_kv_attn_kernel"])
     log("kv_kernel", **results["kv_kernel"])
     del main
     torch.cuda.empty_cache()
@@ -726,6 +824,17 @@ def main() -> int:
                        and not ln.startswith("0 bytes stack frame, 0 bytes "
                                              "spill stores, 0 bytes spill")}
                       )[:4])
+    # registers and spills of kernels 7 and 4, and of their main-path
+    # instances (kernel 7 at b_k = b_v = 4 with 8 PV m-tiles; kernel 4 at
+    # b = 2, dot, lists of 128 keys for k = 100)
+    results["ptxas"] = {
+        "ash_kv_attn_kernel": ptxas_report(
+            libs, "ash_kv_attn_kernel", "ash_kv_attn_kernelILi4ELi4ELi8E"),
+        "ash_gather_topk_kernel": ptxas_report(
+            libs, "ash_gather_topk_kernel",
+            "ash_gather_topk_kernelILi2ELi0ELi4E"),
+    }
+    log("ptxas", **results["ptxas"])
 
     # -- 3. train + encode on the card ----------------------------------
     # queries are held-out rows of the same distribution as the index
@@ -908,14 +1017,24 @@ def main() -> int:
         check(bit_dense, f"{metric}: gathered != dense scores")
         max_err["ash_score_gather"] = max(max_err["ash_score_gather"],
                                           float(err.max()))
-        # kernel 4: a stable top-k over positions of kernel 3, mapped back
+        # kernel 4: a stable top-k over positions of kernel 3, mapped
+        # back, with one scan launch and one merge launch
+        before = dict(TK.launch_counts)
         ts, tr = TK.ash_score_gather_topk_cuda(
             codes, cand, *args[1:], qterm, rowterm, b=pl.b, k=K,
             metric=metric)
+        check(TK.launch_counts["ash_score_gather_topk"]
+              == before["ash_score_gather_topk"] + 1
+              and TK.launch_counts["ash_topk_merge"]
+              == before["ash_topk_merge"] + 1,
+              f"{metric}: kernel 4 launches {TK.launch_counts}")
         vs, vp = ref.stable_top_k(g, K)
         exact4 = bool(torch.equal(ts, vs)
                       and torch.equal(tr, cand.gather(1, vp)))
         check(exact4, f"{metric}: fused gather != sorted gather")
+        cases4 = gather_topk_cases(codes, cand, args[1:], qterm, rowterm,
+                                   pl.b, metric, g)
+        check(all(cases4.values()), f"{metric}: kernel 4 cases {cases4}")
         ps, _ = ref.ash_score_gather_topk_ref(
             codes, cand, *args[1:], qterm, rowterm, b=pl.b, k=K,
             metric=metric)
@@ -976,6 +1095,7 @@ def main() -> int:
             gather_max_err_over_bound=ratio,
             gather_bit_equal_dense=bit_dense,
             gather_fused_equals_sorted=exact4,
+            gather_fused_cases=cases4,
             coarse_bit_equal_plain=exact5,
             coarse_fused_equals_sorted=exact6,
             coarse_fused_ascending_equals_sorted=exact6_asc,
@@ -1006,10 +1126,12 @@ def main() -> int:
         (ids_fused if r < N_REQ else ids_rerank).append(ids)
     wall = time.perf_counter() - t0
     launches = dict(TK.launch_counts)
-    # one scan and at most one merge launch per fused request
+    merges = dict(TK.merge_launches)
+    # one scan and one merge launch per fused request
     check(launches["ash_score_topk"] == N_REQ
-          and launches["ash_topk_merge"] <= N_REQ,
-          f"fused kernel launches {launches}")
+          and launches["ash_topk_merge"] == N_REQ
+          and merges["ash_score_topk"] == N_REQ,
+          f"fused kernel launches {launches}, merges {merges}")
     check(launches["ash_score"] >= N_RERANK_REQ,
           f"materializing kernel launches {launches}")
 
@@ -1044,6 +1166,7 @@ def main() -> int:
     stream, route_ids = {}, {}
     for name, idx, kw, kernels in routes:
         before = dict(TK.launch_counts)
+        before_m = dict(TK.merge_launches)
         lat, ids_r = [], []
         t0 = time.perf_counter()
         for r in range(N_ROUTE_REQ):
@@ -1057,19 +1180,30 @@ def main() -> int:
         delta = {k: TK.launch_counts[k] - before[k]
                  for k in kernels + ("ash_score_topk",
                                      "ash_score_coarse_topk",
+                                     "ash_score_gather_topk",
                                      "ash_topk_merge")}
+        merged = {k: TK.merge_launches[k] - before_m[k]
+                  for k in TK.merge_launches}
+        # each fused scan (kernels 2, 6, 4) launches exactly one merge,
+        # counted under its own name; a route through kernel 4 launches
+        # it exactly once a request
         fused = delta["ash_score_topk"] + delta["ash_score_coarse_topk"]
         check(all(delta[k] >= N_ROUTE_REQ for k in kernels)
               and fused in (0, N_ROUTE_REQ)
-              and delta["ash_topk_merge"] <= fused,
-              f"{name}: launches {delta} over {N_ROUTE_REQ} requests")
+              and all(merged[k] == delta[k] for k in merged)
+              and delta["ash_topk_merge"] == sum(merged.values())
+              and ("ash_score_gather_topk" not in kernels
+                   or delta["ash_score_gather_topk"] == N_ROUTE_REQ),
+              f"{name}: launches {delta}, merges {merged} over "
+              f"{N_ROUTE_REQ} requests")
         route_ids[name] = torch.cat(ids_r)
         stream[name] = dict(p50_ms=pct(lat, 50), p99_ms=pct(lat, 99),
                             mean_ms=sum(lat) / len(lat),
                             qps=N_ROUTE_REQ * REQ_M / wall,
-                            launches=delta)
+                            launches=delta, merges=merged)
         log("serve_route", route=name, **stream[name])
     launches_b = dict(TK.launch_counts)
+    merges_b = dict(TK.merge_launches)
     # a query searched alone equals its row of the batch search
     single = {}
     for name, idx, kw, _ in routes:
@@ -1083,6 +1217,7 @@ def main() -> int:
                             and torch.equal(i1, ib[3:4]))
     check(all(single.values()), f"single row != batch row: {single}")
     results["serve_routes"] = dict(routes=stream, launches=launches_b,
+                                   merges=merges_b,
                                    single_row_equals_batch_row=single)
     log("single_row", **single)
 
@@ -1237,47 +1372,56 @@ def main() -> int:
     results["kernels"] = rows
     results["gather_shape"] = dict(R=R, live_pairs=pairs,
                                    distinct_live_rows=uniq)
-    # kernels 2 and 6: the scan alone and the merge alone, on the strip
+    # kernels 2, 6 and 4: the scan alone and the merge alone, on the strip
     # the scan really emits; the merge kernel EQUAL to its plain version
-    # there.  ref.merge_strip is timed at kernel 4's strip, its one user.
+    # there (for kernel 4 with the positions mapped through the table);
+    # each row's merge_launches is its own merges on the main path
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    fused_cfg = {
+        "ash_score_topk": (
+            lambda: TK.ash_score_topk_cuda(*args, b=payload.b, k=K), K, None,
+            ref.span_geometry(n, K, None, 2 * n_sm),
+            merges["ash_score_topk"]),
+        "ash_score_coarse_topk": (
+            lambda: TK.ash_score_coarse_topk_cuda(*cargs, b=payload.b, k=L),
+            L, None, ref.span_geometry(n, L, None, 2 * n_sm),
+            merges_b["ash_score_coarse_topk"]),
+        "ash_score_gather_topk": (
+            lambda: TK.ash_score_gather_topk_cuda(gargs[0], grows,
+                                                  *gargs[1:], b=pl.b, k=K),
+            K, grows, ref.gather_span_geometry(R, REQ_M, K, None, n_sm),
+            merges_b["ash_score_gather_topk"]),
+    }
     fused_split = {}
     for row in rows:
-        if row["name"] not in ("ash_score_topk", "ash_score_coarse_topk"):
+        if row["name"] not in fused_cfg:
             continue
-        fn = (lambda: TK.ash_score_topk_cuda(*args, b=payload.b, k=K)) if (
-            row["name"] == "ash_score_topk") else (
-            lambda: TK.ash_score_coarse_topk_cuda(*cargs, b=payload.b, k=L))
-        kk = K if row["name"] == "ash_score_topk" else L
+        fn, kk, trows, (n_spans, per, _), merges = fused_cfg[row["name"]]
         keys, run = capture_strip(fn)
-        got_m = TK.ash_topk_merge_cuda(keys, kk, run)
-        want_m = ref.merge_keys_ref(keys, kk)
+        got_m = TK.ash_topk_merge_cuda(keys, kk, run, rows=trows)
+
+        def merge_plain(keys=keys, kk=kk, trows=trows):
+            s_, i_ = ref.merge_keys_ref(keys, kk)
+            return s_, i_ if trows is None else ref.positions_to_rows(
+                trows, i_)
+
+        want_m = merge_plain()
         check(torch.equal(got_m[0], want_m[0])
               and torch.equal(got_m[1], want_m[1]),
-              f"{row['name']}: merge kernel != ref.merge_strip")
-        n_spans, per, _ = ref.span_geometry(
-            n, kk, None, 2 * torch.cuda.get_device_properties(
-                0).multi_processor_count)
+              f"{row['name']}: merge kernel != its plain version")
         fused_split[row["name"]] = dict(
             spans=n_spans, tiles_per_span=per,
             keys_per_query=int(keys.shape[1]),
             valid_keys=int((keys != -1).sum()),
             scan_ms=scan_only_ms(fn),
-            merge_ms=event_ms(lambda: TK.ash_topk_merge_cuda(keys, kk, run)),
-            merge_plain_ms=event_ms(lambda: ref.merge_keys_ref(keys, kk)),
+            merge_ms=event_ms(lambda: TK.ash_topk_merge_cuda(
+                keys, kk, run, rows=trows)),
+            merge_plain_ms=event_ms(merge_plain),
             merge_equals_plain=True)
-        row["merge_launches"] = (launches if row["name"] == "ash_score_topk"
-                                 else launches_b)["ash_topk_merge"]
+        row["merge_launches"] = merges
         row.update(scan_ms=fused_split[row["name"]]["scan_ms"],
                    merge_ms=fused_split[row["name"]]["merge_ms"])
-    g_blocks, g_tilde, _ = ref.topk_geometry(R, K)
-    strip_vals = torch.randn(REQ_M, g_blocks * g_tilde, device=dev)
-    strip_ids = torch.randperm(REQ_M * g_blocks * g_tilde, device=dev).to(
-        torch.int32).reshape(REQ_M, -1)
-    results["fused_strip"] = dict(
-        kernels_2_6=fused_split,
-        kernel4_candidates_per_query=g_blocks * g_tilde,
-        kernel4_merge_strip_ms=event_ms(
-            lambda: ref.merge_strip(strip_vals, strip_ids, K)))
+    results["fused_strip"] = dict(kernels_2_4_6=fused_split)
     log("fused_strip", **results["fused_strip"])
     log("gather_shape", **results["gather_shape"])
     del V32, Vg, V8

@@ -11,7 +11,9 @@ Operands are read in place through their strides: up to two lead
 dimensions (for decode: batch and KV head of the ``(B, S, KV, W)``
 layer cache, permuted as a view), packed words with a unit last stride,
 scales in bf16 or fp32, a broadcast mask.  Nothing is copied or
-converted except the small query block.
+converted except the small query block.  Both products run on the
+tensor cores (bf16 ``mma.sync`` on exact codes, fp32 operands split
+into three bf16 parts); the design note is in the CUDA source.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from repro_torch.kernels.ash_score import _ptr, _stream
 
 G_MAX = 8  # query heads per KV stream the kernel takes
 D_MAX = 256  # packed code width (words * codes per word) it takes
-TILE = 128  # positions per kernel tile
+TILE = 256  # positions a block's 8 warps take in one round (32 each)
 TARGET_BLOCKS = 2048  # blocks to aim for when splitting S (132 SMs)
 
 launch_counts = {"ash_kv_attn": 0}
@@ -51,7 +53,8 @@ def _kernels() -> ctypes.CDLL:
 
 def split_geometry(n_streams: int, S: int) -> tuple[int, int]:
     """(splits, rows per split) of S over the blocks of one stream: about
-    TARGET_BLOCKS blocks in all, whole tiles per split."""
+    TARGET_BLOCKS blocks in all, whole rounds of TILE positions per
+    split."""
     tiles = -(-S // TILE)
     splits = max(1, min(tiles, -(-TARGET_BLOCKS // n_streams)))
     rows = -(-tiles // splits) * TILE

@@ -12,24 +12,24 @@ wrapper                        replaces                         source
 ``ash_score_gather_topk_cuda`` ``ash_score_gather_topk_pallas`` ash_gather
 ``ash_score_coarse_cuda``      ``ash_score_coarse_pallas``      ash_coarse
 ``ash_score_coarse_topk_cuda`` ``ash_score_coarse_topk_pallas`` ash_coarse
-``ash_topk_merge_cuda``        the merge of kernels 2 and 6     ash_select
+``ash_topk_merge_cuda``        the merge of kernels 2, 4, 6     ash_select
 =============================  ===============================  ==========
 
 For a CUDA tensor a wrapper launches its kernel on the current stream
 or raises; for a CPU tensor it runs the kernel's plain PyTorch version
 from ``repro_torch.kernels.ref``.  ``launch_counts`` counts launches,
 one per kernel launch and nowhere else, so a run can show which
-kernels its main path went through.
+kernels its main path went through.  ``merge_launches`` counts each merge
+launch once more, under the fused scan whose strip it reduced.
 
-Bound and design notes are in the CUDA sources.  The fused dense and
-coarse scans (kernels 2 and 6) emit a strip of 64-bit selection keys,
-one sorted list per span of tiles (``ref.span_geometry``), and
+Bound and design notes are in the CUDA sources.  The fused dense,
+gathered and coarse scans (kernels 2, 4 and 6) emit a strip of 64-bit
+selection keys, one sorted list per span of tiles
+(``ref.span_geometry``; ``ref.gather_span_geometry`` for the gathered
+scan, whose keys carry candidate positions), and
 ``ash_topk_merge_cuda`` reduces it to the top-k with one more launch
-(``csrc/ash_select.cu``, counted as ``ash_topk_merge``).  The gathered
-scan's per-tile candidates (kernel 4) are merged here by two stable
-sorts (by candidate position, then by score), which reproduces the
-reference's two-key ``lax.sort``, and map back through the candidate
-rows.
+(``csrc/ash_select.cu``, counted as ``ash_topk_merge``), mapping the
+gathered scan's positions back to payload rows on the card.
 """
 from __future__ import annotations
 
@@ -47,6 +47,10 @@ launch_counts = {
     "ash_score_coarse": 0, "ash_score_coarse_topk": 0,
     "ash_topk_merge": 0,
 }
+# the same merge launches, counted again under the fused scan whose strip
+# each one reduced
+merge_launches = {"ash_score_topk": 0, "ash_score_gather_topk": 0,
+                  "ash_score_coarse_topk": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,18 +60,19 @@ _ENTRY_POINTS = {
     "ash_score": {"ash_score_launch": (9, 6),
                   "ash_score_topk_launch": (10, 9)},
     "ash_gather": {"ash_gather_launch": (10, 7),
-                   "ash_gather_topk_launch": (11, 9)},
+                   "ash_gather_topk_launch": (10, 10)},
     "ash_coarse": {"ash_coarse_launch": (11, 6),
                    "ash_coarse_topk_launch": (12, 9)},
-    "ash_select": {"ash_topk_merge_launch": (3, 4)},
+    "ash_select": {"ash_topk_merge_launch": (4, 5)},
 }
 MERGE_MAX_K = 512  # the selection lists live in shared memory
 _libs: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, merge_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def _kernels(source: str = "ash_score") -> ctypes.CDLL:
@@ -133,26 +138,36 @@ def _stream(device) -> int:
 _sm_count: dict[int, int] = {}
 
 
-def _target_spans(device) -> int:
-    """About two 512-thread blocks per SM for each query chunk."""
+def _sms(device) -> int:
     i = device.index if device.index is not None else \
         torch.cuda.current_device()
     if i not in _sm_count:
         _sm_count[i] = torch.cuda.get_device_properties(
             i).multi_processor_count
-    return 2 * _sm_count[i]
+    return _sm_count[i]
 
 
-def ash_topk_merge_cuda(keys: torch.Tensor, k: int, run: int):
+def _target_spans(device) -> int:
+    """About two 512-thread blocks per SM for each query chunk."""
+    return 2 * _sms(device)
+
+
+def ash_topk_merge_cuda(keys: torch.Tensor, k: int, run: int, rows=None,
+                        *, scan=None):
     """(m, k) f32 scores and int32 ids of a (m, width) int64 strip of
     selection keys (``ref.make_keys``; valid keys unique per row), each
     row width / run runs of ``run`` keys in ascending unsigned order
     (the fused scans' span lists): the top-k by (score desc, id asc),
-    (-inf, -1) past the valid keys.  On the card one launch of
-    ``ash_topk_merge_kernel``, which takes a first bound from the runs'
-    heads; k is at most ``MERGE_MAX_K`` there."""
+    (-inf, -1) past the valid keys.  With ``rows`` ((m, R) int32, the
+    gathered scan's candidate table) the ids are candidate positions
+    and come back mapped through it, as ``ref.positions_to_rows``.  On
+    the card one launch of ``ash_topk_merge_kernel``, which takes a
+    first bound from the runs' heads; k is at most ``MERGE_MAX_K``
+    there, and ``scan`` (a key of ``merge_launches``) names the fused
+    scan whose strip it reduces."""
     if keys.device.type == "cpu":
-        return ref.merge_keys_ref(keys, k)
+        vals, ids = ref.merge_keys_ref(keys, k)
+        return vals, ids if rows is None else ref.positions_to_rows(rows, ids)
     m, width = keys.shape
     if keys.dtype != torch.int64 or not keys.is_contiguous():
         raise ValueError(f"keys: want contiguous int64, got {keys.dtype}")
@@ -161,18 +176,27 @@ def ash_topk_merge_cuda(keys: torch.Tensor, k: int, run: int):
     if not 1 <= k <= MERGE_MAX_K:
         raise ValueError(f"k={k}: the strip merge takes 1 <= k <= "
                          f"{MERGE_MAX_K}; use the materializing kernel")
+    if rows is not None and (
+            rows.dtype != torch.int32 or rows.device != keys.device
+            or rows.dim() != 2 or rows.shape[0] != m or rows.shape[1] < 1
+            or not rows.is_contiguous()):
+        raise ValueError(f"rows: want contiguous int32 (m={m}, R >= 1) on "
+                         f"{keys.device}, got {rows.dtype} "
+                         f"{tuple(rows.shape)} on {rows.device}")
     vals = torch.empty(m, k, dtype=torch.float32, device=keys.device)
     ids = torch.empty(m, k, dtype=torch.int32, device=keys.device)
     if m == 0:
         return vals, ids
     _launch("ash_select", "ash_topk_merge_launch", "ash_topk_merge",
-            _ptr(keys), _ptr(vals), _ptr(ids), m, width, k, run,
-            _stream(keys.device))
+            _ptr(keys), _ptr(rows), _ptr(vals), _ptr(ids), m, width, k, run,
+            0 if rows is None else rows.shape[1], _stream(keys.device))
+    if scan is not None:
+        merge_launches[scan] += 1
     return vals, ids
 
 
-def _fused_select(launch, n, m, k, k_tilde, device):
-    """Run a fused scan into a key strip (``launch(strip, L,
+def _fused_select(scan, launch, n, m, k, k_tilde, device):
+    """Run the fused scan ``scan`` into a key strip (``launch(strip, L,
     tiles_per_span, n_spans)``), then merge it: (m, k) scores, ids."""
     n_spans, per, L = ref.span_geometry(n, k, k_tilde, _target_spans(device))
     if k > MERGE_MAX_K:
@@ -183,7 +207,7 @@ def _fused_select(launch, n, m, k, k_tilde, device):
                 torch.empty(0, k, dtype=torch.int32, device=device))
     strip = torch.empty(m, n_spans * L, dtype=torch.int64, device=device)
     launch(strip, L, per, n_spans)
-    return ash_topk_merge_cuda(strip, k, L)
+    return ash_topk_merge_cuda(strip, k, L, scan=scan)
 
 
 def ash_score_cuda(
@@ -243,7 +267,7 @@ def ash_score_topk_cuda(
     n, wd = codes.shape
     m = q_proj.shape[0]
     return _fused_select(
-        lambda strip, L, per, n_spans: _launch(
+        "ash_score_topk", lambda strip, L, per, n_spans: _launch(
             "ash_score", "ash_score_topk_launch", "ash_score_topk",
             _ptr(codes), _ptr(q_proj), _ptr(scale), _ptr(offset),
             _ptr(cluster), _ptr(ip_q_landmarks), _ptr(qterm), _ptr(rowterm),
@@ -306,10 +330,14 @@ def ash_score_gather_topk_cuda(
 
     Equal to a stable top-k over candidate POSITIONS of
     ``ash_score_gather_cuda``'s scores, mapped back through ``rows``
-    (values, rows and tie order) whenever k <= k_tilde (default k).
-    The tile is 512 positions (the reference's is 128): the result is
-    the same whenever k <= k_tilde.  Pad ids never surface; slots past
-    the live candidates come back (-inf, -1); k above the strip raises.
+    (values, rows and tie order) whenever k <= k_tilde (default k);
+    for k_tilde < k, to the per-512-position-tile selection of
+    ``ref.tile_topk_ref`` (the reference's tile is 128: the result is
+    the same whenever k <= k_tilde).  Pad ids never surface; slots past
+    the live candidates come back (-inf, -1); k above the strip raises,
+    and on the card so does k above ``MERGE_MAX_K``.  On the card: one
+    scan launch into a key strip (``ref.gather_span_geometry``) and one
+    merge launch that also maps positions to rows.
     """
     if codes.device.type == "cpu":
         return ref.ash_score_gather_topk_ref(
@@ -321,20 +349,24 @@ def ash_score_gather_topk_cuda(
            rowterm, metric, b, extra=_check_rows(rows, m))
     n, wd = codes.shape
     R = rows.shape[1]
-    n_blocks, k_tilde, _ = ref.topk_geometry(R, k, k_tilde)
-    strip = n_blocks * k_tilde
-    vals = torch.empty(m, strip, dtype=torch.float32, device=codes.device)
-    pos = torch.empty(m, strip, dtype=torch.int32, device=codes.device)
+    n_spans, per, L = ref.gather_span_geometry(R, m, k, k_tilde,
+                                               _sms(codes.device))
+    if k > MERGE_MAX_K:
+        raise ValueError(f"k={k}: the strip merge takes k <= "
+                         f"{MERGE_MAX_K}; use the materializing kernel")
     if m == 0:
-        return vals[:, :k], pos[:, :k]
+        return (torch.empty(0, k, dtype=torch.float32, device=codes.device),
+                torch.empty(0, k, dtype=torch.int32, device=codes.device))
+    strip = torch.empty(m, n_spans * L, dtype=torch.int64,
+                        device=codes.device)
     _launch("ash_gather", "ash_gather_topk_launch", "ash_score_gather_topk",
             _ptr(codes), _ptr(rows), _ptr(q_proj), _ptr(scale),
             _ptr(offset), _ptr(cluster), _ptr(ip_q_landmarks), _ptr(qterm),
-            _ptr(rowterm), _ptr(vals), _ptr(pos), n, m, R, wd,
-            ip_q_landmarks.shape[1], b, _METRIC_CODE[metric], k_tilde,
-            n_blocks, _stream(codes.device))
-    s, p = ref.merge_strip(vals, pos, k)
-    return s, ref.positions_to_rows(rows, p)
+            _ptr(rowterm), _ptr(strip), n, m, R, wd,
+            ip_q_landmarks.shape[1], b, _METRIC_CODE[metric], L, per,
+            n_spans, _stream(codes.device))
+    return ash_topk_merge_cuda(strip, k, L, rows=rows,
+                               scan="ash_score_gather_topk")
 
 
 def _coarse_extra(q_scale, q_corr, m):
@@ -394,7 +426,7 @@ def ash_score_coarse_topk_cuda(
            q_dtype=torch.int8)
     n, wd = codes.shape
     return _fused_select(
-        lambda strip, L, per, n_spans: _launch(
+        "ash_score_coarse_topk", lambda strip, L, per, n_spans: _launch(
             "ash_coarse", "ash_coarse_topk_launch", "ash_score_coarse_topk",
             _ptr(codes), _ptr(q_int8), _ptr(q_scale), _ptr(q_corr),
             _ptr(scale), _ptr(offset), _ptr(cluster), _ptr(ip_q_landmarks),

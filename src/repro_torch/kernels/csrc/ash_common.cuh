@@ -1,8 +1,7 @@
 // Routines shared by the ASH scan kernels (ash_score.cu, ash_gather.cu,
 // ash_coarse.cu): the operand block, the code unpack, the Eq. 20
-// epilogue and metric tail, the order-preserving selection keys, the
-// in-tile bitonic sort and the strip writer, and the bitrate x metric
-// dispatch of the C entry points.
+// epilogue and metric tail, the order-preserving selection keys, and the
+// bitrate x metric dispatch of the C entry points.
 //
 // Every score is computed in one fixed order: the dot term
 // accumulated sequentially over the code dimensions (fp32 FMA for the
@@ -20,7 +19,6 @@ namespace {
 constexpr int MT = 8;               // queries per block (register tile)
 constexpr int TOPK_BLOCK_N = 512;   // columns per selection tile == threads
 constexpr unsigned long long INVALID_KEY = ~0ull;
-constexpr int32_t ID_SENTINEL = 0x7fffffff;
 
 enum { METRIC_DOT = 0, METRIC_L2 = 1, METRIC_COS = 2 };
 
@@ -93,55 +91,6 @@ __device__ __forceinline__ float key_score(unsigned long long key) {
   const uint32_t ord = ~(uint32_t)(key >> 32);
   const uint32_t u = (ord & 0x80000000u) ? (ord & 0x7fffffffu) : ~ord;
   return __uint_as_float(u);
-}
-
-// Ascending bitonic sort of `rows` rows of TOPK_BLOCK_N keys each
-// (row r at keys + r * TOPK_BLOCK_N), by the whole block.  Every
-// thread of the block must call it; it ends on a barrier.
-__device__ __forceinline__ void bitonic_sort_rows(unsigned long long* keys,
-                                                  int rows) {
-  constexpr int HALF = TOPK_BLOCK_N / 2;
-  for (int size = 2; size <= TOPK_BLOCK_N; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int p = threadIdx.x; p < rows * HALF; p += blockDim.x) {
-        const int r = p / HALF, q = p % HALF;
-        const int lo = 2 * stride * (q / stride) + (q % stride);
-        const int hi = lo + stride;
-        unsigned long long* kr = keys + r * TOPK_BLOCK_N;
-        const unsigned long long x = kr[lo], y = kr[hi];
-        const bool ascending = (lo & size) == 0;
-        if ((x > y) == ascending) {
-          kr[lo] = y;
-          kr[hi] = x;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// Write the first k_tilde sorted keys of `rows` rows to this tile's
-// slots of the (m, strip) candidate strip, starting at output row
-// `row0`: (score, col0 + column), or (-inf, sentinel) past the valid
-// keys.
-__device__ __forceinline__ void emit_strip(const unsigned long long* keys,
-                                           int rows, int row0, int k_tilde,
-                                           int strip, int col0,
-                                           float* __restrict__ vals,
-                                           int32_t* __restrict__ ids) {
-  for (int t = threadIdx.x; t < rows * k_tilde; t += blockDim.x) {
-    const int r = t / k_tilde, slot = t % k_tilde;
-    const unsigned long long key = keys[r * TOPK_BLOCK_N + slot];
-    const size_t o = (size_t)(row0 + r) * strip +
-                     (size_t)blockIdx.x * k_tilde + slot;
-    if (key == INVALID_KEY) {
-      vals[o] = -__int_as_float(0x7f800000);  // -inf
-      ids[o] = ID_SENTINEL;
-    } else {
-      vals[o] = key_score(key);
-      ids[o] = col0 + (int)(key & 0xffffffffu);
-    }
-  }
 }
 
 template <template <int, int> class Launch, typename... Args>

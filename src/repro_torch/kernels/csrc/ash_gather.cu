@@ -6,8 +6,7 @@
 //                                                           tail; pad id -1
 //                                                           scores -inf)
 //   ash_gather_topk_kernel <- ash_score_gather_topk_pallas (same scan +
-//                                                           partial top-k~
-//                                                           per tile of
+//                                                           top-k over
 //                                                           candidate
 //                                                           positions)
 //
@@ -26,22 +25,37 @@
 //     lists are contiguous row ranges, so neighbouring threads read
 //     neighbouring rows;
 //   * a pad id (-1) loads nothing: its thread writes -inf (kernel 3) or
-//     an invalid key (kernel 4), and a selection tile with no live
-//     candidate skips its sort;
+//     an invalid key that never enters a selection (kernel 4);
 //   * the block's query row sits in shared memory and is read as a
 //     broadcast; the dot term is a sequential fp32 FMA over the code
 //     dimensions and the epilogue uses unfused round-to-nearest ops, in
 //     the order of the dense kernels' score_row, so a gathered score is
 //     bit-equal to the dense kernel's score of the same (query, row);
-//   * the fused kernel sorts 64-bit (score desc, POSITION asc) keys of a
-//     512-position tile and emits the first k~: ties go to the lowest
-//     candidate position, as in the reference.  The wrapper merges the
-//     strip and maps positions back through rows.
+//   * the fused kernel (kernel 4) keys each score as 64 bits (score
+//     desc, POSITION asc: ties go to the lowest candidate position, as
+//     in the reference).  A block walks a span of 512-position tiles of
+//     one query's table (about two blocks per SM over all queries,
+//     ref.gather_span_geometry; one-tile spans when k~ < k, which keeps
+//     the reference's per-tile strip).  Two 512-thread blocks are
+//     resident on an SM only where an instance takes at most 64
+//     registers.  ptxas gives 64 to the b <= 4 instances with lists of
+//     up to 256 keys (the main path's, b = 2 with 128 keys, spills 60
+//     bytes there), except b = 1 with 256 keys under l2 or cos (96); the
+//     512-key and most b = 8 instances take 89-114 and fit one block, so
+//     their grid runs as two waves.  Each warp scores its positions of
+//     8 tiles at a time, 8 a lane (score_one, so bit-equal to kernel 3),
+//     and takes those beating the bound into its own running top-L list
+//     (ash_select.cuh: the bound is shared by the block's 16 warps), with
+//     no block barrier until the span ends; the lists are then merged
+//     and the span's L keys written to a strip, which
+//     ash_topk_merge_kernel (ash_select.cu) reduces to the top-k and maps
+//     back through rows on the card: one scan launch and one merge
+//     launch, nothing on the host.
 //
 // Each C entry point launches on the given stream and returns
 // cudaGetLastError() so the wrapper can refuse a launch that failed.
 
-#include "ash_common.cuh"
+#include "ash_select.cuh"
 
 namespace {
 
@@ -115,31 +129,53 @@ __global__ void __launch_bounds__(GATHER_THREADS)
                     : -__int_as_float(0x7f800000);
 }
 
-// grid (n_blocks, m): one 512-position tile of one query per block.
-template <int B, int METRIC>
+// grid (n_spans, m): block (x, qi) walks tiles [x * tiles_per_span, ...)
+// of query qi's candidate table; thread c of the block scores position
+// tile * TOPK_BLOCK_N + c of each, warp w keeps its list of LR = 32N keys,
+// and the span's first L keys of the merged lists go to its strip slots.
+template <int B, int METRIC, int N>
 __global__ void __launch_bounds__(TOPK_BLOCK_N)
     ash_gather_topk_kernel(ScanArgs a, const int32_t* __restrict__ rows,
-                           int R, int d_pad, bool vec4, int k_tilde,
-                           int strip, float* __restrict__ vals,
-                           int32_t* __restrict__ ids) {
+                           int R, int d_pad, bool vec4, int L,
+                           int tiles_per_span, int n_spans,
+                           unsigned long long* __restrict__ strip) {
+  constexpr int LR = 32 * N;
+  constexpr int WARPS = TOPK_BLOCK_N / 32;
   extern __shared__ float4 smem_f4[];
   float* q_s = reinterpret_cast<float*>(smem_f4);
-  unsigned long long* keys =
-      reinterpret_cast<unsigned long long*>(q_s + d_pad);
+  unsigned long long* lists =
+      reinterpret_cast<unsigned long long*>(q_s + d_pad);  // [WARPS][LR]
+  unsigned long long* bufs = lists + WARPS * LR;           // [WARPS][256]
+  unsigned long long* bound = bufs + WARPS * WARP_KEYS;
   const int qi = blockIdx.y;
   load_query_row(a, d_pad, qi, q_s);
+  for (int t = threadIdx.x; t < WARPS * LR; t += blockDim.x)
+    lists[t] = INVALID_KEY;
+  if (threadIdx.x == 0) *bound = INVALID_KEY;
   __syncthreads();
 
-  const int col = threadIdx.x;
-  const int t = blockIdx.x * TOPK_BLOCK_N + col;
-  const int j = (t < R) ? __ldg(rows + (size_t)qi * R + t) : -1;
-  const bool valid = j >= 0;
-  keys[col] = valid ? make_key(score_one<B, METRIC>(a, j, qi, q_s, vec4), col)
-                    : INVALID_KEY;
-  // a tile of padding only is already in order: every key is invalid
-  if (__syncthreads_or(valid)) bitonic_sort_rows(keys, 1);
-  emit_strip(keys, 1, qi, k_tilde, strip, blockIdx.x * TOPK_BLOCK_N, vals,
-             ids);
+  const int w = threadIdx.x >> 5;
+  const int n_tiles = (R + TOPK_BLOCK_N - 1) / TOPK_BLOCK_N;
+  const int t0 = blockIdx.x * tiles_per_span;
+  const int t1 = min(t0 + tiles_per_span, n_tiles);
+  const int32_t* qrows = rows + (size_t)qi * R;
+  for (int tile = t0; tile < t1; tile += 8) {
+    // this lane's position in each of the next 8 tiles
+    unsigned long long k8[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int pos = (tile + i) * TOPK_BLOCK_N + threadIdx.x;
+      const int j = (tile + i < t1 && pos < R) ? __ldg(qrows + pos) : -1;
+      k8[i] = j >= 0 ? make_key(score_one<B, METRIC>(a, j, qi, q_s, vec4), pos)
+                     : INVALID_KEY;
+    }
+    warp_absorb<N>(k8, bufs + w * WARP_KEYS, lists + (size_t)w * LR, bound,
+                   L);
+  }
+  merge_lists<N>(lists, WARPS);
+  unsigned long long* out =
+      strip + (size_t)qi * n_spans * L + (size_t)blockIdx.x * L;
+  for (int i = threadIdx.x; i < L; i += blockDim.x) out[i] = lists[i];
 }
 
 template <int B, int METRIC>
@@ -156,19 +192,32 @@ struct LaunchGather {
   }
 };
 
+template <int B, int METRIC, int N>
+int launch_gather_topk(ScanArgs a, const int32_t* rows, int R, int d_pad,
+                       bool vec4, int L, int per, int n_spans,
+                       unsigned long long* strip, cudaStream_t stream) {
+  const size_t smem =
+      (size_t)d_pad * sizeof(float) +
+      sizeof(unsigned long long) *
+          ((size_t)(TOPK_BLOCK_N / 32) * (32 * N + WARP_KEYS) + 1);
+  static size_t smem_set = 48 * 1024;
+  int rc = set_smem_once(ash_gather_topk_kernel<B, METRIC, N>, smem,
+                         &smem_set);
+  if (rc) return rc;
+  dim3 grid(n_spans, a.m);
+  ash_gather_topk_kernel<B, METRIC, N><<<grid, TOPK_BLOCK_N, smem, stream>>>(
+      a, rows, R, d_pad, vec4, L, per, n_spans, strip);
+  return (int)cudaGetLastError();
+}
+
 template <int B, int METRIC>
 struct LaunchGatherTopk {
   static int run(ScanArgs a, const int32_t* rows, int R, int d_pad, bool vec4,
-                 int k_tilde, int n_blocks, float* vals, int32_t* ids,
+                 int L, int per, int n_spans, unsigned long long* strip,
                  cudaStream_t stream) {
-    const size_t smem = (size_t)d_pad * sizeof(float) +
-                        (size_t)TOPK_BLOCK_N * sizeof(unsigned long long);
-    int rc = set_smem(ash_gather_topk_kernel<B, METRIC>, smem);
-    if (rc) return rc;
-    dim3 grid(n_blocks, a.m);
-    ash_gather_topk_kernel<B, METRIC><<<grid, TOPK_BLOCK_N, smem, stream>>>(
-        a, rows, R, d_pad, vec4, k_tilde, n_blocks * k_tilde, vals, ids);
-    return (int)cudaGetLastError();
+    SELECT_BY_LANES(L, (launch_gather_topk<B, METRIC, LANES>(
+                           a, rows, R, d_pad, vec4, L, per, n_spans, strip,
+                           stream)));
   }
 };
 
@@ -199,25 +248,28 @@ int ash_gather_launch(const void* codes, const void* rows, const void* q_proj,
                                 static_cast<cudaStream_t>(stream));
 }
 
-// (m, n_blocks * k_tilde) candidate strip of (score, position) into
-// vals/ids; positions with a pad id never surface.
+// (m, n_spans * L) strip of 64-bit selection keys (make_key of score and
+// candidate POSITION; one sorted list of L per span of tiles_per_span
+// 512-position tiles), for ash_topk_merge_launch; pad ids never enter.
 int ash_gather_topk_launch(const void* codes, const void* rows,
                            const void* q_proj, const void* scale,
                            const void* offset, const void* cluster,
                            const void* ipq, const void* qterm,
-                           const void* rowterm, void* vals, void* ids, int n,
-                           int m, int R, int wd, int C, int b, int metric,
-                           int k_tilde, int n_blocks, void* stream) {
-  if (b < 1 || b > 8 || n <= 0 || m <= 0 || m > 65535 || R <= 0 ||
-      k_tilde < 1 || k_tilde > TOPK_BLOCK_N || n_blocks * TOPK_BLOCK_N < R)
+                           const void* rowterm, void* strip, int n, int m,
+                           int R, int wd, int C, int b, int metric, int L,
+                           int tiles_per_span, int n_spans, void* stream) {
+  if (b < 1 || b > 8 || n <= 0 || m <= 0 || m > 65535 || R <= 0 || L < 1 ||
+      L > 512 || tiles_per_span < 1 || n_spans < 1 ||
+      (long long)n_spans * tiles_per_span * TOPK_BLOCK_N < R)
     return (int)cudaErrorInvalidValue;
   const int d_pad = wd * (32 / b);
   ScanArgs a = make_args(codes, q_proj, scale, offset, cluster, ipq, qterm,
                          rowterm, n, m, wd, C);
   return dispatch<LaunchGatherTopk>(
       b, metric, a, static_cast<const int32_t*>(rows), R, d_pad,
-      rows_vec4(codes, wd), k_tilde, n_blocks, static_cast<float*>(vals),
-      static_cast<int32_t*>(ids), static_cast<cudaStream_t>(stream));
+      rows_vec4(codes, wd), L, tiles_per_span, n_spans,
+      static_cast<unsigned long long*>(strip),
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-// Decode attention over an ASH-compressed KV cache for Hopper (sm_90a).
+// Decode attention over an ASH-compressed KV cache for Hopper (sm_90a),
+// on the tensor cores.
 //
 // Replaces (src/repro/kernels/ash_kv_attn.py):
 //   ash_kv_attn_kernel + ash_kv_combine_kernel <- ash_kv_attn_pallas
@@ -16,39 +17,71 @@
 //
 // What bounds it on the H100: bytes.  A cached position costs its packed
 // K and V rows (2 * d_code * b / 8 bytes: 128 at b = 4, d_code = 128) and
-// two scales (4 bytes in bf16), against 4 * G * d_code FLOPs (1536 at
-// G = 3): 11.6 FLOP/byte, under the card's 20 FLOP/byte fp32 ridge.
+// two scales (4 bytes in bf16): 1.1 GB for one layer of the decode shape
+// (256 streams x 32768 positions), 0.33 ms at 3.35 TB/s.  Done with fp32
+// FMAs on the CUDA cores, one code at a time, the two products cost about
+// 1,500 thread-instructions a position: instruction issue, not bytes,
+// would then bound the kernel.
 //
-// What the design does about it:
-//   * the packed cache is read in place, once per stream for all G query
-//     heads of the group: operands come with their own strides, so the
-//     (B, S, KV, W) layer cache is read without a transpose or copy, the
-//     mask may be broadcast (stride 0) and k_bias may be absent; scales
-//     are read as bf16 or fp32, whichever the cache stores;
-//   * codes are never unpacked into device memory: tiles of 128
-//     positions are copied into shared memory as packed words with
-//     cp.async (16 bytes at a time where rows are 16-byte aligned),
-//     double-buffered so that tile t + 1 arrives while tile t is
-//     computed, with the next tile's scales and mask prefetched into
-//     registers; rows are padded to a 16-byte multiple that is 4 words
-//     mod 8, so each thread's 16-byte row reads are free of bank
-//     conflicts;
-//   * codes are unpacked in registers with the bit layout of
-//     core/quantization.py (code c of a word at bits [c*b, (c+1)*b),
-//     value 2*level - (2^b - 1)) and turned into floats by placing
-//     2*level in the mantissa of 2^23 (no int-to-float conversions,
-//     which issue at an eighth of the FMA rate);
-//   * one thread per position computes the G logits, reading the query
-//     as 16-byte broadcasts; one warp per query head takes the tile's
-//     max and sum and updates the running (max, denom) (flash-decoding
-//     online softmax); for p*v_scale*V each thread owns 8 code columns
-//     of a group of rows and accumulates them for the G heads in
-//     registers, so a p value is read once per 8 columns; the row
-//     groups are summed once, at the end, in a fixed order;
-//   * the TPU kernel's sequential grid over S becomes a split of S over
-//     `splits` blocks per stream (enough blocks to fill 132 SMs at small
-//     batch), each writing its partial (max, denom, acc); a second small
-//     kernel combines the splits.
+// What the design does about it: both products run on the tensor cores
+// (mma.sync.m16n8k16, bf16 in, fp32 accumulate), so the CUDA cores only
+// unpack codes, and each code is unpacked once, two at a time, straight
+// into a fragment register.
+//
+//   * Orientation.  Logits: M = 16 positions, K = 16 code dimensions,
+//     N = 8 query heads (G <= 8, padded with zero queries).  PV: M = 16
+//     output code columns, K = 16 positions, N = 8 heads.  The heads sit
+//     on N in both, so a stream's G heads share one pass over its codes.
+//   * Exactness.  Every grid value 2*level - (2^b - 1) is an odd integer
+//     of magnitude <= 255, exact in bf16.  Each fp32 operand that is not
+//     a code (q, and p * v_scale in PV) is split into three bf16 parts,
+//     x = x1 + x2 + x3 + r with x1 = bf16(x), x2 = bf16(x - x1),
+//     x3 = bf16(x - x1 - x2): each part rounds to nearest, so the
+//     residual is |r| <= 2^-27 |x|, below fp32's 2^-24.  A part times a
+//     code is exact in fp32 (8 x 8 significant bits), and the tensor core
+//     sums the products in fp32.  So each logit and each accumulation is
+//     an fp32 sum of exact products, as in the plain version, with
+//     three times the terms; the only differences from the plain version
+//     are the summation order and the accumulator's roundings (fp32,
+//     truncating inside one mma), a few units of 2^-23 of the sum of
+//     |products| per mma.  At logits of a few units this is 1e-6-sized,
+//     against chip_smoke.kv_close's rtol 1e-4 / atol 1e-5.  The
+//     exponentials use ex2.approx (relative error about 2^-22).
+//   * Unpacking into fragments.  A thread's A-fragment register holds
+//     two bf16 values.  For b <= 4 one shift, one AND/OR (lop3) and one
+//     bf16x2 FMA turn codes I and I + 16/b of a packed word into such a
+//     pair: 2*level is OR-ed into the mantissa of bf16 128 (0x4300), and
+//     128 + 2^b - 1 subtracted (exact).  Unpacking is most of the
+//     kernel's instructions, so the lop3 is written out (left to the
+//     compiler, its two constants became two instructions).  For b = 8
+//     (2*level up to 510 does not fit that mantissa) the pair is made in
+//     fp32 (the mantissa of 2^23) and packed by one cvt.  The logit
+//     product's reduction dimension is permuted to match (thread t of a
+//     quad takes words 4r + t of a row; the q fragments are built with
+//     the same permutation), and so is the PV product's output dimension
+//     (thread g of a column group takes words 8r + g; one byte_perm pairs
+//     the same code of two positions), un-permuted once, when the result
+//     is written.
+//   * No block barriers in the loop.  Each warp owns its positions: it
+//     copies 32-position chunks of K and V codes into its own two-stage
+//     cp.async ring in shared memory (16 bytes at a time where rows are
+//     16-byte aligned; rows padded to 4 words mod 8, so the fragment
+//     reads are free of bank conflicts), loads scales, bias and mask two
+//     chunks ahead into registers, and keeps its own online softmax
+//     (running max per head, denominators, the accumulator fragments;
+//     the rescale is skipped when no head's max moved).  The three
+//     parts of the logit product accumulate apart (three short mma
+//     chains instead of one long one) and are summed smallest first.
+//     The logits' fragment layout (heads on the lanes of a quad)
+//     differs from the layout PV wants for p (heads on the quads), so
+//     p * v_scale passes through a small tile in the warp's own shared
+//     memory, behind a __syncwarp.  The warps of a block combine once,
+//     at the end of the split, in a fixed order; the splits of S are
+//     combined by ash_kv_combine_kernel.
+//   * Operands are read in place: two lead dimensions with strides (the
+//     (B, S, KV, W) layer cache read as a view), scales in bf16 or fp32,
+//     an optional bias, a broadcast mask; rows that are not a multiple
+//     of 16 bytes are copied 4 bytes at a time.
 //
 // The C entry point launches both kernels on the given stream and
 // returns cudaGetLastError() so the wrapper can refuse a failed launch.
@@ -59,10 +92,16 @@
 
 namespace {
 
-constexpr int KV_THREADS = 128;  // threads per block
-constexpr int KV_TILE = 128;     // positions per shared-memory tile
-constexpr int G_MAX = 8;         // query heads per KV stream
-constexpr int D_MAX = 256;       // code dimensions (padded to the word)
+constexpr int KV_WARPS_MAX = 8;   // warps per block (fewer for wide rows)
+constexpr int KV_CHUNK = 32;      // positions a warp takes at a time
+constexpr int KV_MT = KV_CHUNK / 16;  // m16 tiles (logits) = k16 steps (PV)
+static_assert(KV_CHUNK == 32, "a lane stages one position's scalars");
+constexpr int KV_STAGES = 2;      // cp.async ring depth per warp
+constexpr int G_MAX = 8;          // query heads per KV stream (mma N)
+constexpr int D_MAX = 256;        // code dimensions (padded to the word)
+constexpr int P_STRIDE = KV_CHUNK + 8;  // floats per head row of a P tile
+constexpr int COMBINE_THREADS = 128;
+constexpr int SMEM_LIMIT = 227 * 1024;
 constexpr float NEG = -1e30f;
 
 // Element strides (lead dim 1, lead dim 2, position) of each operand.
@@ -83,66 +122,111 @@ struct KVArgs {
   float* part_acc;         // (N, splits, G, dv)
   int N2, S, G, Wk, Wv, splits, rows_per_split;
   bool vec_k, vec_v;  // 16-byte aligned rows: copy 16 bytes at a time
+  bool scale_bf16;
   KVStrides st;
 };
 
-template <typename T>
-__device__ __forceinline__ float load_scale(const void* p, long long i);
-
-template <>
-__device__ __forceinline__ float load_scale<float>(const void* p,
-                                                   long long i) {
-  return __ldg(static_cast<const float*>(p) + i);
-}
-
-template <>
-__device__ __forceinline__ float load_scale<__nv_bfloat16>(const void* p,
-                                                           long long i) {
-  return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(~0u, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(~0u, v, o);
-  return v;
-}
-
-// Shared-memory row stride (words) of a staged packed row of W words: a
-// multiple of 4 (16-byte vector reads) that is 4 mod 8, so the 16-byte
-// reads of 8 consecutive rows fall in 8 distinct bank groups.
+// Shared-memory row stride (words) of a staged K row of W words: a
+// multiple of 4 (16-byte copies) that is 4 mod 8, so the 8 rows a
+// fragment load touches fall in 8 distinct groups of 4 banks.
 __host__ __device__ __forceinline__ int row_stride(int W) {
   const int s = (W + 3) & ~3;
   return (s % 8 == 0) ? s + 4 : s;
 }
 
-// Grid value 2*level - (2^B - 1) of the code at bit SHIFT of `word`, as a
-// float, with no int-to-float conversion: 2*level is placed in the low
-// mantissa bits of 2^23 and the sum 2^23 + 2^B - 1 subtracted (exact).
-template <int B, int SHIFT>
-__device__ __forceinline__ float grid_float(uint32_t word) {
-  constexpr uint32_t M2 = ((1u << B) - 1u) << 1;
-  uint32_t two_l;
-  if constexpr (SHIFT >= 1)
-    two_l = (word >> (SHIFT - 1)) & M2;
-  else
-    two_l = (word << 1) & M2;
-  return __uint_as_float(two_l | 0x4B000000u) -
-         (8388608.f + (float)((1 << B) - 1));
+// Geometry of one instance: V word rounds per thread (WV8, words 8r + g),
+// PV m-tiles (NMV), and the shared-memory plan.
+template <int BV, int NMV>
+struct PVShape {
+  static constexpr int CV = 32 / BV;
+  static constexpr int MPW = CV / 2;     // m-tiles per V word round
+  static constexpr int WV8 = NMV / MPW;  // word rounds
+  static constexpr int VS = 8 * WV8 + 4;  // staged V row stride, 4 mod 8
+  static_assert(NMV % MPW == 0, "whole word rounds");
+};
+
+__host__ __device__ __forceinline__ int stage_words(int KS, int VS) {
+  return KV_CHUNK * (KS + VS) + 3 * KV_CHUNK;  // codes, then ks/kb/vs
 }
 
-// v[c] = grid value of code c of `word`, c = C .. 32/B - 1.
-template <int B, int C = 0>
-__device__ __forceinline__ void unpack_word(uint32_t word, float* v) {
-  if constexpr (C < 32 / B) {
-    v[C] = grid_float<B, C * B>(word);
-    unpack_word<B, C + 1>(word, v);
+// Words of one warp's region: its ring and P tile while it scans, then
+// (m, denom, acc) for the block's combine.
+__host__ __device__ __forceinline__ int warp_words(int KS, int VS, int G,
+                                                   int dv) {
+  const int scan = KV_STAGES * stage_words(KS, VS) + G_MAX * P_STRIDE;
+  const int comb = 2 * G_MAX + G * dv;
+  return ((scan > comb ? scan : comb) + 3) & ~3;
+}
+
+__host__ __device__ __forceinline__ int qfrag_words(int nks) {
+  return nks * 3 * 32 * 2;  // [k-step][part][lane] uint2
+}
+
+__device__ __forceinline__ float load_scale(const void* p, long long i,
+                                            bool bf16) {
+  if (bf16)
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+  return __ldg(static_cast<const float*>(p) + i);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// x0 + x1 * 2^16-lanes split into three bf16x2 parts (lo = x0, hi = x1):
+// x = p[0] + p[1] + p[2] + r, |r| <= 2^-27 |x| (each part rounds to
+// nearest; the residual x - bf16(x) is exact in fp32).
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t (&p)[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    p[i] = pack_bf16x2(x0, x1);
+    x0 -= __uint_as_float(p[i] << 16);
+    x1 -= __uint_as_float(p[i] & 0xffff0000u);
   }
+}
+
+// bf16x2 of the grid values 2*level - (2^B - 1) of codes I (low half) and
+// I + 16/B (high half) of the 32-bit word x (code c at bits [c*B, c*B+B)).
+// I is a constant after unrolling.
+template <int B>
+__device__ __forceinline__ uint32_t grid_pair(uint32_t x, int I) {
+  if constexpr (B == 8) {
+    const uint32_t lo = (x >> (8 * I)) & 0xffu;
+    const uint32_t hi = (x >> (16 + 8 * I)) & 0xffu;
+    // 2^23 + 2*level - (2^23 + 255), exact in fp32; then exact in bf16
+    const float flo = __uint_as_float(0x4B000000u | (lo << 1)) - 8388863.f;
+    const float fhi = __uint_as_float(0x4B000000u | (hi << 1)) - 8388863.f;
+    return pack_bf16x2(flo, fhi);
+  } else {
+    constexpr uint32_t M2 = ((1u << B) - 1u) << 1;
+    constexpr uint32_t MASK = M2 | (M2 << 16);
+    // bf16 -(128 + 2^B - 1) in both halves: sign, exponent of 2^7,
+    // mantissa 2^B - 1
+    constexpr uint32_t C = (0xC300u | ((1u << B) - 1u)) * 0x10001u;
+    const uint32_t t = I == 0 ? (x << 1) : (x >> (I * B - 1));
+    // bf16 128 + 2*level: (t & MASK) | magic in one lop3; the magic sits
+    // in a register (as two immediates the compiler would need two ops)
+    uint32_t magic = 0x43004300u, v;
+    asm("" : "+r"(magic));
+    asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n"
+        : "=r"(v)
+        : "r"(t), "r"(MASK), "r"(magic));
+    uint32_t d;
+    asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+        : "=r"(d)
+        : "r"(v), "r"(0x3F803F80u), "r"(C));
+    return d;
+  }
+}
+
+// d += A * B, m16n8k16, bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -157,105 +241,106 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
                "l"(gmem));
 }
 
-// Issue the copies of `rows` packed rows of W words (row stride rs in
-// device memory, KS in shared memory); 16 bytes at a time when `vec`.
+// A lane's walk over the copies of a chunk's rows: copy i = lane + 32j
+// is (row i / U, unit i % U) of U units a row; advanced without a
+// division per copy.
+struct CopyWalk {
+  int r0, u0, dr, du, U;
+  __device__ __forceinline__ void init(int units, int lane) {
+    U = units;
+    r0 = lane / units;
+    u0 = lane - r0 * units;
+    dr = 32 / units;
+    du = 32 - dr * units;
+  }
+};
+
+// Issue the copies of `rows` packed rows of W words (row stride rs words
+// in device memory, RS in shared memory); 16 bytes at a time when `vec`.
 __device__ __forceinline__ void stage_rows(uint32_t* dst, const uint32_t* src,
-                                           long long rs, int rows, int W,
-                                           int KS, bool vec) {
-  if (vec) {
-    const int W4 = W >> 2;
-    for (int i = threadIdx.x; i < rows * W4; i += KV_THREADS) {
-      const int r = i / W4, w = (i - r * W4) << 2;
-      cp_async16(dst + r * KS + w, src + r * rs + w);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * W; i += KV_THREADS) {
-      const int r = i / W, w = i - r * W;
-      cp_async4(dst + r * KS + w, src + r * rs + w);
+                                           long long rs, int rows, int RS,
+                                           const CopyWalk& cw, bool vec) {
+  int r = cw.r0, u = cw.u0;
+  if (cw.du == 0 && vec) {  // units a row divide 32: the unit stays fixed
+    uint32_t* d = dst + r * RS + 4 * u;
+    const uint32_t* g = src + r * rs + 4 * u;
+    const int dd = cw.dr * RS;
+    const long long dg = cw.dr * rs;
+    for (; r < rows; r += cw.dr, d += dd, g += dg) cp_async16(d, g);
+    return;
+  }
+  while (r < rows) {
+    if (vec)
+      cp_async16(dst + r * RS + 4 * u, src + r * rs + 4 * u);
+    else
+      cp_async4(dst + r * RS + u, src + r * rs + u);
+    r += cw.dr;
+    u += cw.du;
+    if (u >= cw.U) {
+      u -= cw.U;
+      ++r;
     }
   }
 }
 
-// Per-position operands of one row: K scale, K bias, V scale, mask.
+// One position's K scale, bias and V scale as the logit and PV use them:
+// masked -> (0, -1e30, v_scale); past the split -> (0, -inf, 0), so it
+// weighs nothing even while every position so far is masked.
 struct RowData {
   float ks, kb, vs;
-  bool valid;
 };
 
-template <typename ST>
 __device__ __forceinline__ RowData load_row(const KVArgs& a, long long ks0,
                                             long long kb0, long long vs0,
-                                            long long mk0, long long s) {
-  RowData d;
-  d.ks = load_scale<ST>(a.ks, ks0 + s * a.st.ks[2]);
-  d.vs = load_scale<ST>(a.vs, vs0 + s * a.st.vs[2]);
-  d.kb = a.kb ? __ldg(a.kb + kb0 + s * a.st.kb[2]) : 0.f;
-  d.valid = a.mask == nullptr || a.mask[mk0 + s * a.st.mk[2]];
+                                            long long mk0, int s, int s_end) {
+  RowData d = {0.f, -__int_as_float(0x7f800000), 0.f};
+  if (s < s_end) {
+    const bool valid = a.mask == nullptr || a.mask[mk0 + s * a.st.mk[2]];
+    d.vs = load_scale(a.vs, vs0 + s * a.st.vs[2], a.scale_bf16);
+    if (valid) {
+      d.ks = load_scale(a.ks, ks0 + s * a.st.ks[2], a.scale_bf16);
+      d.kb = a.kb ? __ldg(a.kb + kb0 + s * a.st.kb[2]) : 0.f;
+    } else {
+      d.kb = NEG;
+    }
+  }
   return d;
 }
 
-// dot[g] += <q_g, codes of one packed word> over its 32/B codes; qw
-// points at the word's first code in head 0's query row (stride dkp).
-template <int B, int GM>
-__device__ __forceinline__ void dot_word(uint32_t word, const float* qw,
-                                         int dkp, int G, float dot[GM]) {
-  constexpr int C = 32 / B;
-  float v[C];
-  unpack_word<B>(word, v);
-#pragma unroll
-  for (int g = 0; g < GM; ++g) {
-    if (g >= G) break;
-    const float4* q4 = reinterpret_cast<const float4*>(qw + g * dkp);
-#pragma unroll
-    for (int c = 0; c < C; c += 4) {
-      const float4 q = q4[c >> 2];
-      dot[g] = fmaf(q.x, v[c], dot[g]);
-      dot[g] = fmaf(q.y, v[c + 1], dot[g]);
-      dot[g] = fmaf(q.z, v[c + 2], dot[g]);
-      dot[g] = fmaf(q.w, v[c + 3], dot[g]);
-    }
-  }
+__device__ __forceinline__ float quad_max(float v) {  // over lanes ^4,^8,^16
+  v = fmaxf(v, __shfl_xor_sync(~0u, v, 4));
+  v = fmaxf(v, __shfl_xor_sync(~0u, v, 8));
+  return fmaxf(v, __shfl_xor_sync(~0u, v, 16));
 }
 
-// The 8 grid values of column group cg (codes 8cg .. 8cg+7) of a staged
-// V row.
-template <int B>
-__device__ __forceinline__ void group_values(const uint32_t* row, int cg,
-                                             float v[8]) {
-  if constexpr (B == 8) {
-    unpack_word<8>(row[2 * cg], v);
-    unpack_word<8>(row[2 * cg + 1], v + 4);
-  } else {
-    constexpr int GPW = 32 / B / 8;  // column groups per word
-    const uint32_t w = row[cg / GPW] >> ((cg % GPW) * 8 * B);
-    float u[32 / B];
-    unpack_word<B>(w, u);  // the compiler keeps the first 8
-#pragma unroll
-    for (int c = 0; c < 8; ++c) v[c] = u[c];
-  }
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(~0u, v, 4);
+  v += __shfl_xor_sync(~0u, v, 8);
+  return v + __shfl_xor_sync(~0u, v, 16);
 }
 
-// GM: the largest G the instance takes (4 or 8); it sizes the register
-// accumulators, so the decode shape (G = 3) runs the 4-head instance.
-template <int BK, int BV, typename ST, int GM>
-__global__ void __launch_bounds__(KV_THREADS)
+// NMV: PV m-tiles of 16 output columns (8 or 16); it sizes the register
+// accumulators.  Block: 32 * nw threads, nw = blockDim.x / 32 warps.
+template <int BK, int BV, int NMV>
+__global__ void __launch_bounds__(32 * KV_WARPS_MAX,
+                                  (NMV == 8 ? 16 : 8) / KV_WARPS_MAX)
     ash_kv_attn_kernel(KVArgs a) {
-  constexpr int CK = 32 / BK, CV = 32 / BV;
+  using PV = PVShape<BV, NMV>;
+  constexpr int CK = 32 / BK, CV = PV::CV;
+  constexpr int SPW = CK / 4;  // logit k-steps per K word
+  constexpr int VS = PV::VS;
   const int G = a.G, Wk = a.Wk, Wv = a.Wv;
   const int dk = Wk * CK, dv = Wv * CV;
-  const int nk4 = (Wk + 3) >> 2, dkp = nk4 * 4 * CK;
-  const int KSk = row_stride(Wk), KSv = row_stride(Wv);
-  extern __shared__ float4 smem_f4[];
-  float* q_s = reinterpret_cast<float*>(smem_f4);              // G * dkp
-  uint32_t* k_s = reinterpret_cast<uint32_t*>(q_s + G * dkp);  // 2 tiles
-  uint32_t* v_s = k_s + 2 * KV_TILE * KSk;                     // 2 tiles
-  float* p_s = reinterpret_cast<float*>(v_s + 2 * KV_TILE * KSv);  // G*TILE
-  float* vsc_s = p_s + G * KV_TILE;                            // TILE
-  float* m_s = vsc_s + KV_TILE;                                // G_MAX
-  float* d_s = m_s + G_MAX;                                    // G_MAX
-  float* c_s = d_s + G_MAX;                                    // G_MAX
+  const int wk4 = (Wk + 3) >> 2, nks = wk4 * SPW;
+  const int KS = row_stride(Wk);
+  const int nw = blockDim.x >> 5;
+  const int SW = stage_words(KS, VS), WW = warp_words(KS, VS, G, dv);
+  extern __shared__ uint4 smem_u4[];
+  uint2* qf = reinterpret_cast<uint2*>(smem_u4);  // [nks][3][32]
+  uint32_t* regions = reinterpret_cast<uint32_t*>(smem_u4) + qfrag_words(nks);
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const int split = blockIdx.x, n = blockIdx.y;
   const long long n1 = n / a.N2, n2 = n % a.N2;
   const KVStrides& st = a.st;
@@ -266,162 +351,269 @@ __global__ void __launch_bounds__(KV_THREADS)
   const long long kb0 = n1 * st.kb[0] + n2 * st.kb[1];
   const long long mk0 = n1 * st.mk[0] + n2 * st.mk[1];
 
+  // q's B fragments, three bf16 parts, in the permuted reduction order:
+  // k-step (r, j), lane (hg, ht) holds codes (2j, 2j + CK/2) and
+  // (2j + 1, 2j + 1 + CK/2) of word 4r + ht for head hg (zero past G
+  // heads and Wk words)
   const float* q = a.q + (size_t)n * G * dk;
-  for (int t = tid; t < G * dkp; t += KV_THREADS) {
-    const int g = t / dkp, k = t - g * dkp;
-    q_s[t] = k < dk ? q[g * dk + k] : 0.f;
-  }
-  if (tid < G_MAX) {
-    m_s[tid] = NEG;
-    d_s[tid] = 0.f;
-    c_s[tid] = 1.f;
-  }
-  // PV layout: thread = (column group cg of 8 codes, row group rg)
-  const int ncg = (dv + 7) >> 3, nrg = KV_THREADS / ncg;
-  const int cg = tid % ncg, rg = tid / ncg;
-  const bool pv_active = rg < nrg;
-  float acc[GM][8];
+  for (int e = threadIdx.x; e < nks * 32; e += blockDim.x) {
+    const int kstep = e >> 5, ln = e & 31, hg = ln >> 2, ht = ln & 3;
+    const int word = 4 * (kstep / SPW) + ht, j = kstep % SPW;
+    const int code[4] = {2 * j, 2 * j + CK / 2, 2 * j + 1, 2 * j + 1 + CK / 2};
+    float v[4];
 #pragma unroll
-  for (int g = 0; g < GM; ++g)
+    for (int i = 0; i < 4; ++i)
+      v[i] = (hg < G && word < Wk) ? q[hg * dk + word * CK + code[i]] : 0.f;
+    uint32_t lo[3], hi[3];
+    split3(v[0], v[1], lo);
+    split3(v[2], v[3], hi);
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[g][c] = 0.f;
+    for (int p = 0; p < 3; ++p)
+      qf[(kstep * 3 + p) * 32 + ln] = make_uint2(lo[p], hi[p]);
+  }
+  __syncthreads();
+
+  uint32_t* region = regions + (size_t)warp * WW;
+  float* ptile = reinterpret_cast<float*>(region + KV_STAGES * SW);
+  CopyWalk cwk, cwv;
+  cwk.init(a.vec_k ? Wk >> 2 : Wk, lane);
+  cwv.init(a.vec_v ? Wv >> 2 : Wv, lane);
 
   const int s_begin = split * a.rows_per_split;
   const int s_end = min(a.S, s_begin + a.rows_per_split);
-  const int n_tiles = s_end > s_begin ? (s_end - s_begin + KV_TILE - 1) / KV_TILE
-                                      : 0;
-  RowData cur = {0.f, 0.f, 0.f, false};
-  if (n_tiles > 0) {
-    const int rows = min(KV_TILE, s_end - s_begin);
-    stage_rows(k_s, kc + (long long)s_begin * st.kc[2], st.kc[2], rows, Wk,
-               KSk, a.vec_k);
-    stage_rows(v_s, vc + (long long)s_begin * st.vc[2], st.vc[2], rows, Wv,
-               KSv, a.vec_v);
-    if (tid < rows) cur = load_row<ST>(a, ks0, kb0, vs0, mk0, s_begin + tid);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
+  const int n_chunks =
+      s_end > s_begin ? (s_end - s_begin + KV_CHUNK - 1) / KV_CHUNK : 0;
+  const int mine = n_chunks > warp ? (n_chunks - warp + nw - 1) / nw : 0;
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int s0 = s_begin + t * KV_TILE;
-    const int rows = min(KV_TILE, s_end - s0);
-    const int buf = t & 1;
-    // prefetch tile t + 1 (its copies and its row operands)
-    RowData nxt = cur;
-    if (t + 1 < n_tiles) {
-      const int s1 = s0 + KV_TILE, rows1 = min(KV_TILE, s_end - s1);
-      stage_rows(k_s + (buf ^ 1) * KV_TILE * KSk,
-                 kc + (long long)s1 * st.kc[2], st.kc[2], rows1, Wk, KSk,
-                 a.vec_k);
-      stage_rows(v_s + (buf ^ 1) * KV_TILE * KSv,
-                 vc + (long long)s1 * st.vc[2], st.vc[2], rows1, Wv, KSv,
-                 a.vec_v);
-      if (tid < rows1) nxt = load_row<ST>(a, ks0, kb0, vs0, mk0, s1 + tid);
+  float acc[NMV][4];
+#pragma unroll
+  for (int mt = 0; mt < NMV; ++mt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[mt][c] = 0.f;
+  // heads 2t and 2t + 1: running max (equal on the 8 lanes of column t)
+  // and this lane's share of the denominator
+  float m_run[2] = {NEG, NEG}, d_run[2] = {0.f, 0.f};
+
+  auto chunk_s0 = [&](int i) { return s_begin + (warp + i * nw) * KV_CHUNK; };
+  auto row_of = [&](int i) { return chunk_s0(i) + lane; };  // lane's position
+  auto issue = [&](int i) {
+    const int s0 = chunk_s0(i), rows = min(KV_CHUNK, s_end - s0);
+    uint32_t* stg = region + (i % KV_STAGES) * SW;
+    stage_rows(stg, kc + (long long)s0 * st.kc[2], st.kc[2], rows, KS, cwk,
+               a.vec_k);
+    stage_rows(stg + KV_CHUNK * KS, vc + (long long)s0 * st.vc[2], st.vc[2],
+               rows, VS, cwv, a.vec_v);
+  };
+  auto put_row = [&](int i, const RowData& d) {
+    float* sc = reinterpret_cast<float*>(region + (i % KV_STAGES) * SW +
+                                         KV_CHUNK * (KS + VS));
+    sc[lane] = d.ks;
+    sc[KV_CHUNK + lane] = d.kb;
+    sc[2 * KV_CHUNK + lane] = d.vs;
+  };
+
+  // the first KV_STAGES - 1 chunks: copies in flight, scalars in place;
+  // the next chunk's scalars in registers (loaded a chunk earlier than
+  // they are stored, so their latency hides behind a chunk's work)
+#pragma unroll
+  for (int i = 0; i < KV_STAGES - 1; ++i) {
+    if (i < mine) {
+      issue(i);
+      put_row(i, load_row(a, ks0, kb0, vs0, mk0, row_of(i), s_end));
     }
     asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 1;\n" ::);
-    __syncthreads();
+  }
+  RowData pend = load_row(a, ks0, kb0, vs0, mk0,
+                          KV_STAGES - 1 < mine ? row_of(KV_STAGES - 1) : s_end,
+                          s_end);
 
-    // logits: one thread per position, all G heads
-    const uint32_t* kt = k_s + buf * KV_TILE * KSk;
-    const uint32_t* vt = v_s + buf * KV_TILE * KSv;
-    if (tid < rows) {
-      float dot[GM];
-#pragma unroll
-      for (int g = 0; g < GM; ++g) dot[g] = 0.f;
-      const uint4* kr = reinterpret_cast<const uint4*>(kt + tid * KSk);
-      for (int w4 = 0; w4 < nk4; ++w4) {
-        const uint4 w = kr[w4];
-        const float* qw = q_s + w4 * 4 * CK;
-        dot_word<BK, GM>(w.x, qw, dkp, G, dot);
-        dot_word<BK, GM>(w.y, qw + CK, dkp, G, dot);
-        dot_word<BK, GM>(w.z, qw + 2 * CK, dkp, G, dot);
-        dot_word<BK, GM>(w.w, qw + 3 * CK, dkp, G, dot);
-      }
-      vsc_s[tid] = cur.vs;
-#pragma unroll
-      for (int g = 0; g < GM; ++g)
-        if (g < G)
-          p_s[g * KV_TILE + tid] = cur.valid ? dot[g] * cur.ks + cur.kb : NEG;
-    }
-    __syncthreads();
+  for (int i = 0; i < mine; ++i) {
+    // chunk i + KV_STAGES - 1 into the stage chunk i - 1 used
+    const int ahead = i + KV_STAGES - 1;
+    if (ahead < mine) issue(ahead);
+    const RowData nxt = load_row(a, ks0, kb0, vs0, mk0,
+                                 ahead + 1 < mine ? row_of(ahead + 1) : s_end,
+                                 s_end);
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(KV_STAGES - 1));
+    __syncwarp();
+    const uint32_t* kt = region + (i % KV_STAGES) * SW;
+    const uint32_t* vt = kt + KV_CHUNK * KS;
+    const float* sc = reinterpret_cast<const float*>(vt + KV_CHUNK * VS);
 
-    // online softmax: one warp per query head
-    for (int g = warp; g < G; g += KV_THREADS / 32) {
-      float* pg = p_s + g * KV_TILE;
-      float mx = NEG;
-      for (int r = lane; r < rows; r += 32) mx = fmaxf(mx, pg[r]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int r = lane; r < rows; r += 32) {
-        const float p = expf(pg[r] - m_new);
-        sum += p;
-        pg[r] = p * vsc_s[r];
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        d_s[g] = d_s[g] * corr + sum;
-        m_s[g] = m_new;
-        c_s[g] = corr;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * corr + sum_r (p * v_scale)_r * v_r over this thread's
-    // rows and 8 columns
-    if (pv_active) {
+    // logits: s[mt] is the m16n8 tile of positions 16mt .. 16mt + 15
+    float s[KV_MT][4], s1[KV_MT][4], s2[KV_MT][4];
 #pragma unroll
-      for (int g = 0; g < GM; ++g) {
-        if (g >= G) break;
-        const float corr = c_s[g];
+    for (int mt = 0; mt < KV_MT; ++mt)
 #pragma unroll
-        for (int c = 0; c < 8; ++c) acc[g][c] *= corr;
-      }
-      for (int r = rg; r < rows; r += nrg) {
-        float v[8];
-        group_values<BV>(vt + r * KSv, cg, v);
+      for (int c = 0; c < 4; ++c) s[mt][c] = s1[mt][c] = s2[mt][c] = 0.f;
+    for (int r = 0; r < wk4; ++r) {
+      uint32_t w[KV_MT][2];
 #pragma unroll
-        for (int g = 0; g < GM; ++g) {
-          if (g >= G) break;
-          const float p = p_s[g * KV_TILE + r];
+      for (int mt = 0; mt < KV_MT; ++mt)
 #pragma unroll
-          for (int c = 0; c < 8; ++c) acc[g][c] = fmaf(p, v[c], acc[g][c]);
+        for (int h = 0; h < 2; ++h)
+          w[mt][h] = kt[(16 * mt + g + 8 * h) * KS + 4 * r + t];
+#pragma unroll
+      for (int j = 0; j < SPW; ++j) {
+        const uint2* qk = qf + (size_t)((r * SPW + j) * 3) * 32 + lane;
+        const uint2 q0 = qk[0], q1 = qk[32], q2 = qk[64];
+#pragma unroll
+        for (int mt = 0; mt < KV_MT; ++mt) {
+          const uint32_t A[4] = {
+              grid_pair<BK>(w[mt][0], 2 * j), grid_pair<BK>(w[mt][1], 2 * j),
+              grid_pair<BK>(w[mt][0], 2 * j + 1),
+              grid_pair<BK>(w[mt][1], 2 * j + 1)};
+          mma16816(s2[mt], A, q2.x, q2.y);
+          mma16816(s1[mt], A, q1.x, q1.y);
+          mma16816(s[mt], A, q0.x, q0.y);
         }
       }
     }
-    cur = nxt;
-    __syncthreads();  // tile t's buffers are free for tile t + 2
+#pragma unroll
+    for (int mt = 0; mt < KV_MT; ++mt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[mt][c] += s1[mt][c] + s2[mt][c];
+
+    // online softmax of heads 2t, 2t + 1 over the chunk; lane (g, t) holds
+    // positions 16mt + g + 8h, h = 0, 1, as s[mt][2h + e] for head 2t + e
+    float mx[2] = {-__int_as_float(0x7f800000), -__int_as_float(0x7f800000)};
+#pragma unroll
+    for (int mt = 0; mt < KV_MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int pos = 16 * mt + g + 8 * h;
+        const float ksv = sc[pos], kbv = sc[KV_CHUNK + pos];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[mt][2 * h + e] = fmaf(s[mt][2 * h + e], ksv, kbv);
+          mx[e] = fmaxf(mx[e], s[mt][2 * h + e]);
+        }
+      }
+    float corr[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float m_new = fmaxf(m_run[e], quad_max(mx[e]));
+      corr[e] = __expf(m_run[e] - m_new);
+      m_run[e] = m_new;
+    }
+#pragma unroll
+    for (int mt = 0; mt < KV_MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int pos = 16 * mt + g + 8 * h;
+        const float vsv = sc[2 * KV_CHUNK + pos];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = __expf(s[mt][2 * h + e] - m_run[e]);
+          psum[e] += p;
+          ptile[(2 * t + e) * P_STRIDE + pos] = p * vsv;
+        }
+      }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) d_run[e] = d_run[e] * corr[e] + psum[e];
+    if (__any_sync(~0u, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+      for (int mt = 0; mt < NMV; ++mt) {
+        acc[mt][0] *= corr[0];
+        acc[mt][1] *= corr[1];
+        acc[mt][2] *= corr[0];
+        acc[mt][3] *= corr[1];
+      }
+    }
+    __syncwarp();
+
+    // acc += V^T (p * v_scale): k-steps of 16 positions; lane (g, t) takes
+    // positions 2t, 2t + 1, 2t + 8, 2t + 9 and V words 8r + g
+#pragma unroll
+    for (int kk = 0; kk < KV_MT; ++kk) {
+      const float* pr = ptile + g * P_STRIDE + 16 * kk + 2 * t;
+      const float2 x01 = *reinterpret_cast<const float2*>(pr);
+      const float2 x89 = *reinterpret_cast<const float2*>(pr + 8);
+      uint32_t lo[3], hi[3];
+      split3(x01.x, x01.y, lo);
+      split3(x89.x, x89.y, hi);
+      const uint32_t* v0 = vt + (16 * kk + 2 * t) * VS + g;
+#pragma unroll
+      for (int r = 0; r < PV::WV8; ++r) {
+        const uint32_t a0 = v0[8 * r], a1 = v0[VS + 8 * r];
+        const uint32_t a8 = v0[8 * VS + 8 * r], a9 = v0[9 * VS + 8 * r];
+        // the same code of two positions side by side: low halves
+        // (codes 0 .. CV/2 - 1) and high halves
+        const uint32_t xl = __byte_perm(a0, a1, 0x5410);
+        const uint32_t xh = __byte_perm(a0, a1, 0x7632);
+        const uint32_t yl = __byte_perm(a8, a9, 0x5410);
+        const uint32_t yh = __byte_perm(a8, a9, 0x7632);
+#pragma unroll
+        for (int c = 0; c < PV::MPW; ++c) {
+          const uint32_t A[4] = {grid_pair<BV>(xl, c), grid_pair<BV>(xh, c),
+                                 grid_pair<BV>(yl, c), grid_pair<BV>(yh, c)};
+          float(&d)[4] = acc[r * PV::MPW + c];
+          mma16816(d, A, lo[2], hi[2]);
+          mma16816(d, A, lo[1], hi[1]);
+          mma16816(d, A, lo[0], hi[0]);
+        }
+      }
+    }
+    if (ahead < mine) put_row(ahead, pend);
+    pend = nxt;
+    __syncwarp();  // this stage and the P tile are free again
   }
   asm volatile("cp.async.wait_group 0;\n" ::);
 
-  // sum the row groups (fixed order, through the free K buffers) and
-  // write this split's partials
-  float* red_s = reinterpret_cast<float*>(k_s);  // nrg * ncg * 8 <= 1024
-  const size_t part = (size_t)n * a.splits + split;
-  if (tid < G) {
-    a.part_m[part * G + tid] = m_s[tid];
-    a.part_d[part * G + tid] = d_s[tid];
+  // combine the warps (fixed order) and write this split's partials.
+  // acc[r * MPW + c] holds (column, head): c0 (col0, 2t), c1 (col0,
+  // 2t + 1), c2 (col1, 2t), c3 (col1, 2t + 1), col0 = (8r + g) CV + c,
+  // col1 = col0 + CV / 2
+#pragma unroll
+  for (int e = 0; e < 2; ++e) d_run[e] = quad_sum(d_run[e]);
+  __syncwarp();
+  float* red = reinterpret_cast<float*>(region);
+  if (g == 0) {
+    red[2 * t] = m_run[0];
+    red[2 * t + 1] = m_run[1];
+    red[G_MAX + 2 * t] = d_run[0];
+    red[G_MAX + 2 * t + 1] = d_run[1];
   }
+  float* racc = red + 2 * G_MAX;  // [G][dv]
 #pragma unroll
-  for (int g = 0; g < GM; ++g) {
-    if (g >= G) break;
-    __syncthreads();
-    if (pv_active)
+  for (int r = 0; r < PV::WV8; ++r)
 #pragma unroll
-      for (int c = 0; c < 8; ++c) red_s[rg * ncg * 8 + cg * 8 + c] = acc[g][c];
-    __syncthreads();
-    for (int col = tid; col < dv; col += KV_THREADS) {
-      float sum = 0.f;
-      for (int r = 0; r < nrg; ++r) sum += red_s[r * ncg * 8 + col];
-      a.part_acc[(part * G + g) * dv + col] = sum;
+    for (int c = 0; c < PV::MPW; ++c) {
+      const int col0 = (8 * r + g) * CV + c, col1 = col0 + CV / 2;
+      const float(&d)[4] = acc[r * PV::MPW + c];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int h = 2 * t + e;
+        if (h >= G) continue;
+        if (col0 < dv) racc[h * dv + col0] = d[e];
+        if (col1 < dv) racc[h * dv + col1] = d[2 + e];
+      }
+    }
+  __syncthreads();
+  const size_t part = (size_t)n * a.splits + split;
+  const float* red0 = reinterpret_cast<const float*>(regions);
+  for (int e = threadIdx.x; e < G * dv; e += blockDim.x) {
+    const int h = e / dv, col = e - h * dv;
+    float M = NEG;
+    for (int w = 0; w < nw; ++w) M = fmaxf(M, red0[(size_t)w * WW + h]);
+    float sum = 0.f, den = 0.f;
+    for (int w = 0; w < nw; ++w) {
+      const float* rw = red0 + (size_t)w * WW;
+      const float f = expf(rw[h] - M);
+      sum += rw[2 * G_MAX + e] * f;
+      den += rw[G_MAX + h] * f;
+    }
+    a.part_acc[(part * G + h) * dv + col] = sum;
+    if (col == 0) {
+      a.part_m[part * G + h] = M;
+      a.part_d[part * G + h] = den;
     }
   }
 }
 
 // out[n, g, :] = sum_s acc_s e^(m_s - M) / max(sum_s d_s e^(m_s - M), 1e-30)
-__global__ void __launch_bounds__(KV_THREADS)
+__global__ void __launch_bounds__(COMBINE_THREADS)
     ash_kv_combine_kernel(const float* __restrict__ part_m,
                           const float* __restrict__ part_d,
                           const float* __restrict__ part_acc, int splits,
@@ -446,50 +638,57 @@ __global__ void __launch_bounds__(KV_THREADS)
   }
 }
 
-template <int BK, int BV, typename ST, int GM>
+template <int BK, int BV, int NMV>
 int launch_kv(KVArgs a, int N, float* out, cudaStream_t stream) {
-  const int dv = a.Wv * (32 / BV);
-  const int dkp = ((a.Wk + 3) / 4) * 4 * (32 / BK);
-  const size_t smem =
-      sizeof(float) * ((size_t)a.G * dkp + 2 * (size_t)KV_TILE * row_stride(a.Wk) +
-                       2 * (size_t)KV_TILE * row_stride(a.Wv) +
-                       (size_t)a.G * KV_TILE + KV_TILE + 3 * G_MAX);
+  using PV = PVShape<BV, NMV>;
+  const int KS = row_stride(a.Wk);
+  const int nks = ((a.Wk + 3) / 4) * (32 / BK / 4);
+  const int ww = warp_words(KS, PV::VS, a.G, a.Wv * PV::CV);
+  int nw = KV_WARPS_MAX;
+  size_t smem = 0;
+  for (; nw >= 1; nw >>= 1) {
+    smem = sizeof(uint32_t) * ((size_t)qfrag_words(nks) + (size_t)nw * ww);
+    if (smem <= (size_t)SMEM_LIMIT) break;
+  }
+  if (nw < 1) return (int)cudaErrorInvalidValue;
   // the attribute call is a CUDA runtime round trip: made once per instance
   // and size, not per launch (28 launches a decode step)
   static size_t smem_set = 48 * 1024;
   int rc = 0;
   if (smem > smem_set) {
-    rc = set_smem(ash_kv_attn_kernel<BK, BV, ST, GM>, smem);
+    rc = set_smem(ash_kv_attn_kernel<BK, BV, NMV>, smem);
     if (rc) return rc;
     smem_set = smem;
   }
   dim3 grid(a.splits, N);
-  ash_kv_attn_kernel<BK, BV, ST, GM><<<grid, KV_THREADS, smem, stream>>>(a);
+  ash_kv_attn_kernel<BK, BV, NMV><<<grid, 32 * nw, smem, stream>>>(a);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
-  ash_kv_combine_kernel<<<N * a.G, KV_THREADS, 0, stream>>>(
-      a.part_m, a.part_d, a.part_acc, a.splits, a.G, dv, out);
+  ash_kv_combine_kernel<<<N * a.G, COMBINE_THREADS, 0, stream>>>(
+      a.part_m, a.part_d, a.part_acc, a.splits, a.G, a.Wv * PV::CV, out);
   return (int)cudaGetLastError();
 }
 
+// PV m-tiles: 8 when the thread's V word rounds fit 8 tiles, else 16
+// (dv <= 256 keeps it there); b_v = 1 packs 16 tiles into one round.
 template <int BK, int BV>
-int launch_st(int scale_bf16, KVArgs a, int N, float* out,
-              cudaStream_t stream) {
-  if (a.G <= 4)
-    return scale_bf16 ? launch_kv<BK, BV, __nv_bfloat16, 4>(a, N, out, stream)
-                      : launch_kv<BK, BV, float, 4>(a, N, out, stream);
-  return scale_bf16 ? launch_kv<BK, BV, __nv_bfloat16, 8>(a, N, out, stream)
-                    : launch_kv<BK, BV, float, 8>(a, N, out, stream);
+int launch_nmv(KVArgs a, int N, float* out, cudaStream_t stream) {
+  constexpr int MPW = 16 / BV;
+  const int tiles = ((a.Wv + 7) / 8) * MPW;
+  if constexpr (MPW <= 8) {
+    if (tiles <= 8) return launch_kv<BK, BV, 8>(a, N, out, stream);
+  }
+  if (tiles > 16) return (int)cudaErrorInvalidValue;
+  return launch_kv<BK, BV, 16>(a, N, out, stream);
 }
 
 template <int BK>
-int launch_bv(int b_v, int scale_bf16, KVArgs a, int N, float* out,
-              cudaStream_t stream) {
+int launch_bv(int b_v, KVArgs a, int N, float* out, cudaStream_t stream) {
   switch (b_v) {
-    case 1: return launch_st<BK, 1>(scale_bf16, a, N, out, stream);
-    case 2: return launch_st<BK, 2>(scale_bf16, a, N, out, stream);
-    case 4: return launch_st<BK, 4>(scale_bf16, a, N, out, stream);
-    case 8: return launch_st<BK, 8>(scale_bf16, a, N, out, stream);
+    case 1: return launch_nmv<BK, 1>(a, N, out, stream);
+    case 2: return launch_nmv<BK, 2>(a, N, out, stream);
+    case 4: return launch_nmv<BK, 4>(a, N, out, stream);
+    case 8: return launch_nmv<BK, 8>(a, N, out, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -533,6 +732,7 @@ int ash_kv_attn_launch(const void* q, const void* k_codes, const void* k_scale,
   a.Wv = Wv;
   a.splits = splits;
   a.rows_per_split = rows_per_split;
+  a.scale_bf16 = scale_bf16 != 0;
   a.vec_k = Wk % 4 == 0 && (uintptr_t)k_codes % 16 == 0 &&
             strides[0] % 4 == 0 && strides[1] % 4 == 0 && strides[2] % 4 == 0;
   a.vec_v = Wv % 4 == 0 && (uintptr_t)v_codes % 16 == 0 &&
@@ -548,10 +748,10 @@ int ash_kv_attn_launch(const void* q, const void* k_codes, const void* k_scale,
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (b_k) {
-    case 1: return launch_bv<1>(b_v, scale_bf16, a, N, o, st);
-    case 2: return launch_bv<2>(b_v, scale_bf16, a, N, o, st);
-    case 4: return launch_bv<4>(b_v, scale_bf16, a, N, o, st);
-    case 8: return launch_bv<8>(b_v, scale_bf16, a, N, o, st);
+    case 1: return launch_bv<1>(b_v, a, N, o, st);
+    case 2: return launch_bv<2>(b_v, a, N, o, st);
+    case 4: return launch_bv<4>(b_v, a, N, o, st);
+    case 8: return launch_bv<8>(b_v, a, N, o, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,13 +1,17 @@
-// The strip merge of the fused dense and coarse scans for Hopper
-// (sm_90a): the (m, width) strip of 64-bit selection keys that
-// ash_score_topk_kernel and ash_coarse_topk_kernel emit (one sorted list
-// per span) reduced to each query's top-k on the card.
+// The strip merge of the fused dense, gathered and coarse scans for
+// Hopper (sm_90a): the (m, width) strip of 64-bit selection keys that
+// ash_score_topk_kernel, ash_gather_topk_kernel and ash_coarse_topk_kernel
+// emit (one sorted list per span) reduced to each query's top-k on the
+// card; for the gathered scan the selected candidate positions are also
+// mapped back to payload rows through the candidate table.
 //
 // Replaces the host-side merge of the strip (two stable sorts, four
-// gathers and a where) that followed the TPU kernels' per-tile partial
-// top-k~ (src/repro/kernels/ash_score.py: ash_score_topk_pallas and
-// ash_score_coarse_topk_pallas merge theirs with lax.sort); its plain
-// version is ref.merge_strip.
+// gathers and a where, then positions_to_rows for the gathered scan)
+// that followed the TPU kernels' per-tile partial top-k~
+// (src/repro/kernels/ash_score.py: ash_score_topk_pallas,
+// ash_score_gather_topk_pallas and ash_score_coarse_topk_pallas merge
+// theirs with lax.sort); its plain version is ref.merge_strip
+// (ref.merge_keys_ref, then ref.positions_to_rows).
 //
 // What bounds it on the H100: latency.  The strip is small (8 bytes a
 // key: 24,500 keys a query at k = 100 over 245 spans) and one block
@@ -22,9 +26,10 @@
 // next 256 loading while it works) into its own running top-k list under
 // one shared bound (ash_select.cuh), with no block barrier; a pairwise
 // tree merges the 16 lists at the end.  Keys are unique (the scans key
-// each row once), so the result is the exact (score desc, id asc) top-k
-// of the strip; INVALID keys (exhausted span slots) never enter, and
-// missing slots come back as (-inf, -1).  k is at most 512.
+// each row or candidate position once), so the result is the exact
+// (score desc, id asc) top-k of the strip; INVALID keys (exhausted span
+// slots) never enter, and missing slots come back as (-inf, -1).  k is
+// at most 512.
 //
 // The C entry point launches on the given stream and returns
 // cudaGetLastError() so the wrapper can refuse a launch that failed.
@@ -40,6 +45,7 @@ constexpr int MERGE_MAX_K = 512;
 template <int N>
 __global__ void __launch_bounds__(MERGE_THREADS)
     ash_topk_merge_kernel(const unsigned long long* __restrict__ keys,
+                          const int32_t* __restrict__ rows, int R,
                           int width, int k, int run,
                           float* __restrict__ vals,
                           int32_t* __restrict__ ids) {
@@ -102,22 +108,25 @@ __global__ void __launch_bounds__(MERGE_THREADS)
       vals[o] = -__int_as_float(0x7f800000);  // -inf
       ids[o] = -1;
     } else {
+      const int32_t id = (int32_t)(key & 0xffffffffu);
       vals[o] = key_score(key);
-      ids[o] = (int32_t)(key & 0xffffffffu);
+      ids[o] = rows ? __ldg(rows + (size_t)blockIdx.x * R + id) : id;
     }
   }
 }
 
 template <int N>
-int launch_merge(const void* keys, void* vals, void* ids, int m, int width,
-                 int k, int run, cudaStream_t stream) {
+int launch_merge(const void* keys, const void* rows, void* vals, void* ids,
+                 int m, int width, int k, int run, int R,
+                 cudaStream_t stream) {
   const size_t smem = sizeof(unsigned long long) *
                       ((size_t)MERGE_WARPS * (32 * N + WARP_KEYS) + 1);
   static size_t smem_set = 48 * 1024;
   int rc = set_smem_once(ash_topk_merge_kernel<N>, smem, &smem_set);
   if (rc) return rc;
   ash_topk_merge_kernel<N><<<m, MERGE_THREADS, smem, stream>>>(
-      static_cast<const unsigned long long*>(keys), width, k, run,
+      static_cast<const unsigned long long*>(keys),
+      static_cast<const int32_t*>(rows), R, width, k, run,
       static_cast<float*>(vals), static_cast<int32_t*>(ids));
   return (int)cudaGetLastError();
 }
@@ -128,15 +137,18 @@ extern "C" {
 
 // (m, k) f32 scores and int32 ids, (score desc, id asc), of the
 // (m, width) key strip, each row width / run ascending runs of `run`
-// keys (the spans' lists); -1 ids (and -inf) past the valid keys.
-int ash_topk_merge_launch(const void* keys, void* vals, void* ids, int m,
-                          int width, int k, int run, void* stream) {
+// keys (the spans' lists); -1 ids (and -inf) past the valid keys.  With
+// `rows` (m, R) int32 (may be null) a selected id i of row q is written
+// as rows[q, i]: the gathered scan keys candidate positions.
+int ash_topk_merge_launch(const void* keys, const void* rows, void* vals,
+                          void* ids, int m, int width, int k, int run, int R,
+                          void* stream) {
   if (m <= 0 || width <= 0 || k < 1 || k > MERGE_MAX_K || run < 1 ||
-      width % run != 0)
+      width % run != 0 || (rows != nullptr && R <= 0))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  SELECT_BY_LANES(k, (launch_merge<LANES>(keys, vals, ids, m, width, k,
-                                          run, st)));
+  SELECT_BY_LANES(k, (launch_merge<LANES>(keys, rows, vals, ids, m, width,
+                                          k, run, R, st)));
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 // Running top-L selection behind a threshold, one list per warp, for the
-// fused dense and coarse scans (ash_score.cu, ash_coarse.cu) and the
-// strip merge (ash_select.cu).
+// fused dense, gathered and coarse scans (ash_score.cu, ash_gather.cu,
+// ash_coarse.cu) and the strip merge (ash_select.cu).
 //
 // Keys are 64-bit: make_key order (score descending, then id ascending;
 // ids are unique, so the order is total), INVALID_KEY for a row that

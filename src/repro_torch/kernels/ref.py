@@ -248,6 +248,28 @@ def span_geometry(n: int, k: int, k_tilde=None, target_spans: int = 264):
     return -(-n_tiles // per), per, min(k, k_tilde)
 
 
+def gather_span_geometry(R: int, m: int, k: int, k_tilde=None,
+                         n_sm: int = 132):
+    """(n_spans, tiles_per_span, L) of the card's fused gathered
+    selection: :func:`span_geometry` over the R candidate positions of
+    each query, about two blocks per SM over all m queries (a block
+    walks one query's tiles; two are resident at once where the
+    kernel's instance takes at most 64 registers, see
+    ``csrc/ash_gather.cu``)."""
+    return span_geometry(R, k, k_tilde, -(-2 * n_sm // max(1, m)))
+
+
+def gather_span_strip_ref(scores: torch.Tensor, rows: torch.Tensor, k: int,
+                          k_tilde=None, target_spans: int = 264):
+    """The key strip the fused gathered kernel emits, from a
+    materialized (m, R) gathered score matrix: :func:`span_strip_ref`
+    over candidate positions, pad ids (-1) never entering, as
+    :func:`make_keys` keys of (score, position).  Merged by
+    :func:`merge_keys_ref` and mapped by :func:`positions_to_rows`."""
+    return make_keys(*span_strip_ref(scores, rows >= 0, k, k_tilde,
+                                     target_spans))
+
+
 def span_strip_ref(scores: torch.Tensor, valid: torch.Tensor, k: int,
                    k_tilde=None, target_spans: int = 264):
     """The strip the fused kernels emit, from a materialized (m, n)

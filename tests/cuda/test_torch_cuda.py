@@ -215,6 +215,112 @@ def test_gather_fused_equals_sorted_materialized(cuda, metric, R, k):
     assert (pr == tr.cpu()).float().mean() > 0.98
 
 
+def _gather_route(args, rows, k, k_tilde=None, metric="dot"):
+    """Kernel 4 on the card: (scores, rows), with exactly one scan launch
+    and one merge launch."""
+    before = dict(TK.launch_counts)
+    got = TK.ash_score_gather_topk_cuda(args[0], rows, *args[1:], b=2, k=k,
+                                        k_tilde=k_tilde, metric=metric)
+    torch.cuda.synchronize()
+    assert TK.launch_counts["ash_score_gather_topk"] == before[
+        "ash_score_gather_topk"] + 1
+    assert TK.launch_counts["ash_topk_merge"] == before["ash_topk_merge"] + 1
+    return got
+
+
+def _gather_want(args, rows, k, metric="dot"):
+    """A stable top-k over positions of kernel 3's scores, mapped through
+    rows; pad positions (-inf) come back as -1."""
+    full = TK.ash_score_gather_cuda(args[0], rows, *args[1:], b=2,
+                                    metric=metric)
+    vs, vp = TR.stable_top_k(full, k)
+    r = rows.gather(1, vp)
+    return vs, torch.where(torch.isneginf(vs) & (r < 0), -1, r).to(
+        torch.int32), full
+
+
+@pytest.mark.parametrize("R", [40, 300, 511, 512, 513, 1000, 5127])
+@pytest.mark.parametrize("m", [1, 8, 13])
+def test_gather_fused_ragged_tables(cuda, R, m):
+    """R below one tile, at it, just above it and ragged; one query alone
+    (one span a tile) and m = 13."""
+    k = min(100, R)
+    args = _args(R + m, 2, 100, 4000, m, 16, "dot", cuda)
+    rows = _rows(R * m, m, R, 4000, cuda)
+    ts, tr = _gather_route(args, rows, k)
+    vs, vr, _ = _gather_want(args, rows, k)
+    assert torch.equal(ts, vs) and torch.equal(tr, vr)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_gather_fused_ascending_positions(cuda, metric):
+    """Each query's table ordered so that kernel 3's scores ascend with
+    position: every key beats the running bound (the adversarial order)."""
+    m, R, k = 8, 6000, 100
+    args = _args(11, 2, 100, 8000, m, 16, metric, cuda)
+    rows = _rows(12, m, R, 8000, cuda, pad=0.0)
+    full = TK.ash_score_gather_cuda(args[0], rows, *args[1:], b=2,
+                                    metric=metric)
+    rows = rows.gather(1, torch.sort(full, dim=1, stable=True).indices)
+    rows = rows.contiguous()
+    _, _, asc = _gather_want(args, rows, k, metric)
+    assert bool((asc[:, 1:] >= asc[:, :-1]).all())
+    ts, tr = _gather_route(args, rows, k, metric=metric)
+    vs, vr, _ = _gather_want(args, rows, k, metric)
+    assert torch.equal(ts, vs) and torch.equal(tr, vr)
+
+
+@pytest.mark.parametrize("R,k,k_tilde", [(6000, 10, 4), (2000, 100, 30),
+                                         (1537, 9, 3), (700, 128, 64)])
+def test_gather_fused_k_tilde_below_k_is_per_tile(cuda, R, k, k_tilde):
+    """k_tilde < k: one-tile spans, equal to ``ref.tile_topk_ref`` over
+    positions (512-position tiles), mapped through rows."""
+    m = 9
+    args = _args(R, 2, 100, 5000, m, 16, "dot", cuda)
+    rows = _rows(R + 1, m, R, 5000, cuda)
+    ts, tr = _gather_route(args, rows, k, k_tilde)
+    full = TK.ash_score_gather_cuda(args[0], rows, *args[1:], b=2)
+    ws, wp = TR.tile_topk_ref(full, rows >= 0, k, k_tilde)
+    assert torch.equal(ts, ws)
+    assert torch.equal(tr, TR.positions_to_rows(rows, wp))
+
+
+def test_gather_fused_all_pad_rows(cuda):
+    """A table of pads only, and one query of pads only: (-inf, -1)."""
+    m, R, k = 4, 900, 50
+    args = _args(2, 2, 100, 3000, m, 16, "dot", cuda)
+    rows = torch.full((m, R), -1, dtype=torch.int32, device=cuda)
+    ts, tr = _gather_route(args, rows, k)
+    assert torch.isneginf(ts).all() and (tr == -1).all()
+    rows = _rows(3, m, R, 3000, cuda)
+    rows[0] = -1
+    ts, tr = _gather_route(args, rows, k)
+    assert torch.isneginf(ts[0]).all() and (tr[0] == -1).all()
+    vs, vr, _ = _gather_want(args, rows, k)
+    assert torch.equal(ts, vs) and torch.equal(tr, vr)
+
+
+def test_merge_kernel_rows_equals_positions_to_rows(cuda):
+    """The merge with the candidate table (positions mapped on the card)
+    equals ``ref.positions_to_rows`` of the merge without."""
+    m, R, k = 6, 3000, 100
+    rng = np.random.default_rng(4)
+    scores = torch.from_numpy(rng.integers(-30, 30, (m, R)).astype(
+        np.float32))
+    rows = _rows(5, m, R, 9000, "cpu")
+    strip = TR.gather_span_strip_ref(scores, rows, k, None, 3).to(cuda)
+    L = TR.span_geometry(R, k, None, 3)[2]
+    rows = rows.to(cuda)
+    s0, p0 = TK.ash_topk_merge_cuda(strip, k, L)
+    s1, r1 = TK.ash_topk_merge_cuda(strip, k, L, rows=rows)
+    assert torch.equal(s0, s1)
+    assert torch.equal(r1, TR.positions_to_rows(rows, p0))
+    want = TK.ash_topk_merge_cuda(strip.cpu(), k, L, rows=rows.cpu())
+    assert torch.equal(s1.cpu(), want[0]) and torch.equal(r1.cpu(), want[1])
+    with pytest.raises(ValueError, match="rows"):
+        TK.ash_topk_merge_cuda(strip, k, L, rows=rows.long())
+
+
 def _coarse_args(seed, b, d, n, m, C, metric, device):
     rng = np.random.default_rng(seed)
     a = _args(seed, b, d, n, m, C, metric, device)
@@ -464,6 +570,9 @@ def test_ivf_on_card(cuda):
     counts = dict(TK.launch_counts)
     assert counts["ash_score_gather_topk"] >= 3 and counts[
         "ash_score_gather"] >= 1, counts
+    # one merge per fused scan, counted under the scan that asked for it
+    assert all(TK.merge_launches[k] == counts[k] for k in TK.merge_launches)
+    assert counts["ash_topk_merge"] == sum(TK.merge_launches.values())
     a = index.search(Qm, k=10, nprobe=4)
     b = index.search(Qm, k=10, nprobe=4, coarse="int8", shortlist=10**7)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
@@ -544,6 +653,37 @@ def test_kv_attn_kernel_edges(cuda, G, S, mask_from, scale_dtype, bias):
     t = _kv_inputs(S + G, 4, 2, 96, 64, S, (5,), G, cuda,
                    scale_dtype=scale_dtype, bias=bias, mask_from=mask_from)
     got, want = _kv_both(t, 4, 2)
+    _kv_close(got, want)
+
+
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_kv_attn_kernel_every_group_size(cuda, G):
+    """G query heads padded to the mma's 8 columns: every G from 1 to 8."""
+    t = _kv_inputs(100 + G, 4, 4, 128, 128, 1500, (3, 2), G, cuda,
+                   scale_dtype=torch.bfloat16, bias=False)
+    got, want = _kv_both(t, 4, 4)
+    _kv_close(got, want)
+
+
+@pytest.mark.parametrize("S,mask_from", [(45, 40), (93, 0), (301, 290),
+                                         (1037, 1021), (2063, 5)])
+def test_kv_attn_kernel_ragged_fragments(cuda, S, mask_from):
+    """S not a multiple of 16 (a chunk's last m16 tile ragged), and the
+    valid positions [mask_from, S - 3) ending inside one 16-position
+    fragment, or starting inside the last one."""
+    t = _kv_inputs(S, 4, 2, 96, 64, S, (2, 3), 3, cuda, mask_from=mask_from)
+    got, want = _kv_both(t, 4, 2)
+    _kv_close(got, want)
+
+
+@pytest.mark.parametrize("q_scale", [1e-6, 1e-3, 1.0, 10.0])
+def test_kv_attn_kernel_query_magnitudes(cuda, q_scale):
+    """q of standard deviation q_scale, through the three-part bf16
+    split: tiny q (near-uniform attention) to logits of tens."""
+    t = _kv_inputs(int(q_scale * 1e6) % 1009, 4, 4, 128, 128, 800, (2, 2), 3,
+                   cuda)
+    t["q"] = t["q"] * (q_scale / 0.1)
+    got, want = _kv_both(t, 4, 4)
     _kv_close(got, want)
 
 

@@ -199,6 +199,126 @@ def test_gather_topk_strip_and_random_inputs():
             metric="l2", interpret=True)
 
 
+# -- kernel 4 on the card: span geometry and the strip it emits ----------
+# The card's fused gathered scan walks spans of 512-position tiles of one
+# query's table (``ref.gather_span_geometry``) and writes each span's best
+# L keys of (score, POSITION); the merge kernel reduces the strip and maps
+# positions to rows.  Its plain model (``ref.gather_span_strip_ref``,
+# merged by the merge wrapper's CPU path) must EQUAL the plain version
+# and the JAX kernel: exact inputs make every score exact in both.
+
+
+@pytest.mark.parametrize("R", [1, 77, 511, 512, 513, 4000, 125440])
+@pytest.mark.parametrize("m", [1, 8, 13])
+@pytest.mark.parametrize("k,k_tilde", [(1, None), (100, None), (32, 64),
+                                       (10, 4)])
+@pytest.mark.parametrize("n_sm", [1, 132])
+def test_gather_span_geometry(R, m, k, k_tilde, n_sm):
+    """Whole 512-position tiles covering the table; about two blocks per
+    SM over the m queries; one-tile spans when k_tilde < k; the refusal
+    of ``ref.topk_geometry``."""
+    try:
+        _, kt, _ = TR.topk_geometry(R, k, k_tilde)
+    except ValueError:
+        with pytest.raises(ValueError, match="candidate strip"):
+            TR.gather_span_geometry(R, m, k, k_tilde, n_sm)
+        return
+    n_spans, per, L = TR.gather_span_geometry(R, m, k, k_tilde, n_sm)
+    n_tiles = -(-R // TR.TOPK_BLOCK_N)
+    assert L == min(k, kt)
+    assert (n_spans - 1) * per < n_tiles <= n_spans * per
+    if k <= kt:
+        target = -(-2 * n_sm // m)
+        assert n_spans <= target and per == -(-n_tiles // target)
+    else:
+        assert per == 1 and n_spans == n_tiles
+
+
+def _span_merged(scores, rows, k, k_tilde, target):
+    """The card's route on the CPU: the plain strip, then the merge
+    wrapper's CPU path with the candidate table (positions -> rows)."""
+    strip = TR.gather_span_strip_ref(scores, rows, k, k_tilde, target)
+    L = TR.span_geometry(rows.shape[1], k, k_tilde, target)[2]
+    return TK.ash_topk_merge_cuda(strip, k, L, rows=rows)
+
+
+@pytest.mark.parametrize("R,k,k_tilde", [(333, 12, None), (77, 77, None),
+                                         (4000, 100, None), (4000, 10, 4),
+                                         (1537, 30, 64), (600, 128, None)])
+@pytest.mark.parametrize("order", ["random", "ascending"])
+@pytest.mark.parametrize("target", [1, 3, 33])
+def test_gather_span_strip_merge_equals_plain(R, k, k_tilde, order, target):
+    """Merged, the plain span strip EQUALS ``ref.ash_score_gather_topk_ref``
+    (scores, rows, tie order), also on a table whose scores ascend with
+    position (every key passes the card's bound), with a query of pads
+    only (-inf, -1) and, for k_tilde < k, the per-tile selection."""
+    n, m = 500, 4
+    a = _inputs(R + k, 2, 48, n, m, 8, exact=True)
+    rows = _rows(k + R, m, R, n)
+    rows[1] = -1
+    ta = _torch_args(a, "dot")
+    tr = torch.from_numpy(rows)
+    if order == "ascending":
+        sc = TK.ash_score_gather_cuda(ta[0], tr, *ta[1:], b=2)
+        sc = torch.where(tr >= 0, sc, float("-inf"))
+        tr = tr.gather(1, torch.sort(sc, dim=1, stable=True).indices)
+        live = (tr >= 0)
+        tr = torch.where(live, tr, -1).contiguous()
+    scores = TK.ash_score_gather_cuda(ta[0], tr, *ta[1:], b=2)
+    if order == "ascending":
+        fin = scores[0][tr[0] >= 0]
+        assert bool((fin[1:] >= fin[:-1]).all())
+    want = TR.ash_score_gather_topk_ref(ta[0], tr, *ta[1:], b=2, k=k,
+                                        k_tilde=k_tilde)
+    got = _span_merged(scores, tr, k, k_tilde, target)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (got[1][1] == -1).all() and torch.isneginf(got[0][1]).all()
+    if k_tilde is None or k <= k_tilde:
+        vs, vp = TR.stable_top_k(scores, k)
+        keep = torch.isneginf(vs) & (tr.gather(1, vp) < 0)
+        assert torch.equal(got[0], vs)
+        assert torch.equal(got[1], torch.where(keep, -1, tr.gather(1, vp)))
+
+
+@pytest.mark.parametrize("b,metric,R,k", [(2, "dot", 700, 100),
+                                          (4, "l2", 130, 40),
+                                          (1, "cos", 1030, 9)])
+def test_gather_span_strip_merge_equals_jax(b, metric, R, k):
+    """The card's route modelled on the CPU against the JAX package's
+    gathered top-k kernel in interpret mode: EQUAL on exact inputs,
+    spans of several tiles (target 1) and of one."""
+    n, m = 400, 3
+    a = _inputs(R * b, b, 48, n, m, 8, exact=True)
+    rows = _rows(R, m, R, n)
+    rows[2, R // 3:] = -1
+    ja, ta = _jax_args(a, metric), _torch_args(a, metric)
+    tr = torch.from_numpy(rows)
+    js, jrow = ash_score_gather_topk_pallas(
+        ja[0], jnp.asarray(rows), *ja[1:], b=b, k=k, metric=metric,
+        interpret=True, compute_dtype=jnp.float32)
+    scores = TK.ash_score_gather_cuda(ta[0], tr, *ta[1:], b=b, metric=metric)
+    for target in (1, 264):
+        got = _span_merged(scores, tr, k, None, target)
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(js))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(jrow))
+
+
+def test_merge_wrapper_rows_equals_positions_to_rows():
+    """The merge with a candidate table equals ``ref.positions_to_rows`` of
+    the merge without (the CPU path of the card's option)."""
+    rng = np.random.default_rng(5)
+    m, R, k = 3, 900, 50
+    scores = torch.from_numpy(rng.integers(-9, 10, (m, R)).astype(
+        np.float32))
+    rows = torch.from_numpy(_rows(1, m, R, 2000))
+    strip = TR.gather_span_strip_ref(scores, rows, k, None, 2)
+    L = TR.span_geometry(R, k, None, 2)[2]
+    s0, p0 = TK.ash_topk_merge_cuda(strip, k, L)
+    s1, r1 = TK.ash_topk_merge_cuda(strip, k, L, rows=rows)
+    assert torch.equal(s0, s1)
+    assert torch.equal(r1, TR.positions_to_rows(rows, p0))
+
+
 # ---------------------------------------------------------------------------
 # Coarse operands and the coarse scan (kernels 5-6)
 # ---------------------------------------------------------------------------

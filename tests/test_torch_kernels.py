@@ -213,6 +213,7 @@ def test_cpu_path_counts_no_launch_and_check_refuses():
         2, 4, dtype=torch.int32)), 2, 4)
     assert len(TK.launch_counts) == 7
     assert set(TK.launch_counts.values()) == {0}
+    assert set(TK.merge_launches.values()) == {0}
     args = list(_torch_args(a, "dot"))
     args[1] = args[1].to(torch.float64)
     with pytest.raises(ValueError, match="q_proj"):
