@@ -13,11 +13,12 @@ for exact rerank.  Phases, one line each:
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
      nvcc, one process per source in parallel (into
      ``build/repro_torch/``), and report ``-Xptxas -v`` registers and
-     spills of kernels 7 and 4;
+     spills of kernels 7, 4, 1 and 3;
   3. train and encode on the card (``AshIndex.build``), train a second
-     time from the same seed (the models must be bit-identical), and
-     the IVF index over the same model and payload
-     (``AshIndex.from_parts``, nlist = 64);
+     time from the same seed (the models must be bit-identical), encode
+     one vector twice alone and once as a row of a 64-row batch (all
+     three bit-identical), and the IVF index over the same model and
+     payload (``AshIndex.from_parts``, nlist = 64);
   4. the dense kernels against their plain PyTorch versions on the same
      inputs (8 queries, the full index, metrics dot/l2/cos), and the
      fused kernel (scan + strip merge) EXACTLY equal to a stable top-k
@@ -59,7 +60,9 @@ for exact rerank.  Phases, one line each:
   7. per-kernel times, bounds and library yardsticks of kernels 1-6
      (a ``kernels`` JSON line; kernels 2, 4 and 6 with their merge), the
      scan alone and the merge kernel alone on the strip the scan emits
-     (and the merge EQUAL to its plain version there), and a
+     (and the merge EQUAL to its plain version there), a ``scans`` line
+     with the four asymmetric scans alone (kernels 1, 3 and the scans of
+     2, 4, which share their scoring routine), and a
      ``torch.profiler`` breakdown of flat k=100, IVF and flat coarse
      requests (device time by kernel, idle share);
   8. save, load, search again, flat and IVF: results bit-identical;
@@ -109,7 +112,6 @@ NPROBE, N_ROUTE_REQ = 8, 32  # IVF probes; requests per phase-5b route
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
 PEAK_INT8_OPS = 1979e12  # H100 SXM, dense int8 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
-U32 = 2.0**-24  # fp32 unit roundoff
 
 
 def log(phase, **kv):
@@ -147,28 +149,6 @@ def event_ms(fn, iters=30, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def score_tolerance(A, bias, off, qterm, rowterm, base, metric, d_pad):
-    """Elementwise bound on |kernel - plain| for one score matrix.
-
-    Both sum d_pad products q_k v_k in fp32, in different orders: each
-    is within gamma_d * sum|q_k v_k| of the exact sum (gamma_d =
-    d_pad*u / (1 - d_pad*u)), so they differ by at most 2 gamma_d A
-    with A = |scale| * (|q| @ |V|^T).  The epilogue's few roundings
-    (<= 4 per side, each within u of its operands) add 16 u of the
-    magnitudes involved.  l2 doubles the base term; cos scales it by
-    qterm * rowterm.
-    """
-    gamma = d_pad * U32 / (1 - d_pad * U32)
-    mag = A + bias.abs() + off.abs()[None, :]
-    if metric == "dot":
-        return 2 * gamma * A + 16 * U32 * mag
-    if metric == "l2":
-        extra = qterm.abs()[:, None] + rowterm.abs()[None, :]
-        return 4 * gamma * A + 16 * U32 * (2 * mag + extra + base.abs())
-    f = (qterm[:, None] * rowterm[None, :]).abs()
-    return f * (2 * gamma * A + 16 * U32 * mag) + 16 * U32 * base.abs()
 
 
 def bound(ops_ms, bytes_):
@@ -223,11 +203,12 @@ def scan_only_ms(fn):
     """Device ms of a fused wrapper's scan alone: the merge replaced by
     a no-op for the timing."""
     from repro_torch.kernels import ash_score as TK
+    from repro_torch.kernels import probe
 
     merge = TK.ash_topk_merge_cuda
     TK.ash_topk_merge_cuda = lambda keys, *_, **__: (keys, keys)
     try:
-        return event_ms(fn)
+        return probe.graph_ms(fn)
     finally:
         TK.ash_topk_merge_cuda = merge
 
@@ -782,7 +763,7 @@ def main() -> int:
     from repro_torch.data.synthetic import embedding_dataset
     from repro_torch.index import AshIndex, exact_topk, recall_curve
     from repro_torch.index import ivf as IV
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import _build, ops, probe
     from repro_torch.kernels import ash_score as TK
     from repro_torch.kernels import ref
 
@@ -824,15 +805,20 @@ def main() -> int:
                        and not ln.startswith("0 bytes stack frame, 0 bytes "
                                              "spill stores, 0 bytes spill")}
                       )[:4])
-    # registers and spills of kernels 7 and 4, and of their main-path
+    # registers and spills of kernels 7, 4, 1 and 3, and of their main-path
     # instances (kernel 7 at b_k = b_v = 4 with 8 PV m-tiles; kernel 4 at
-    # b = 2, dot, lists of 128 keys for k = 100)
+    # b = 2, dot, lists of 128 keys for k = 100; kernels 1 and 3 at b = 2,
+    # dot)
     results["ptxas"] = {
         "ash_kv_attn_kernel": ptxas_report(
             libs, "ash_kv_attn_kernel", "ash_kv_attn_kernelILi4ELi4ELi8E"),
         "ash_gather_topk_kernel": ptxas_report(
             libs, "ash_gather_topk_kernel",
             "ash_gather_topk_kernelILi2ELi0ELi4E"),
+        "ash_score_kernel": ptxas_report(
+            libs, "ash_score_kernel", "ash_score_kernelILi2ELi0E"),
+        "ash_gather_kernel": ptxas_report(
+            libs, "ash_gather_kernel", "ash_gather_kernelILi2ELi0E"),
     }
     log("ptxas", **results["ptxas"])
 
@@ -858,10 +844,31 @@ def main() -> int:
     payload = index.payload
     check(payload.codes.shape == (N, 8) and payload.codes.is_cuda,
           "payload shape/device")
+    # one vector encodes alike twice alone and as a row of a 64-row batch
+    # (quant_exact's scans over a single row); the other 63 rows alone
+    # against the batch are counted, not gated
+    batch = A.encode(model, X[:64])
+
+    def row_of(p, i):
+        return (p.codes[i], p.scale[i], p.offset[i], p.cluster[i])
+
+    def same_row(p, i, q, j):
+        return all(torch.equal(a, b) for a, b in zip(row_of(p, i),
+                                                     row_of(q, j)))
+
+    alone = [A.encode(model, X[i:i + 1]) for i in range(64)]
+    single_same = (same_row(A.encode(model, X[5:6]), 0, alone[5], 0)
+                   and same_row(alone[5], 0, batch, 5))
+    check(single_same, "one vector encodes differently alone and in a batch")
+    rows_alone_equal = sum(same_row(p, 0, batch, i)
+                           for i, p in enumerate(alone))
+    del batch, alone
     results["build_index"] = dict(
         data_s=t_data, train_s=t_train, encode_s=t_encode,
         itq_iters=len(history), payload_bits=cfg.payload_bits(),
         train_twice_bit_identical=train_same,
+        single_vector_encode_bit_identical=single_same,
+        rows_of_64_alone_equal_batch=rows_alone_equal,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
     )
     log("train_encode", **results["build_index"])
@@ -899,8 +906,8 @@ def main() -> int:
         codes, qp, scale, offset, cluster, ipq = args
         Amat = (qp.abs() @ V_abs.T) * scale.abs()[None, :]
         bias = ipq[:, cluster.long()]
-        tol = score_tolerance(Amat, bias, offset, qterm, rowterm, want,
-                              metric, d_pad)
+        tol = ref.score_tolerance(Amat, bias, offset, qterm, rowterm,
+                                  want, metric, d_pad)
         err = (got - want).abs()
         ratio = float((err / tol).max())
         check(ratio <= 1.0, f"{metric}: |kernel - plain| above bound "
@@ -997,8 +1004,8 @@ def main() -> int:
                                   metric=metric)
         want_d = ref.ash_score_metric_ref(*args, qterm, rowterm, b=pl.b,
                                           metric=metric)
-        tol = score_tolerance(Amat, bias, offset, qterm, rowterm, want_d,
-                              metric, d_pad).gather(1, safe)
+        tol = ref.score_tolerance(Amat, bias, offset, qterm, rowterm,
+                                  want_d, metric, d_pad).gather(1, safe)
         del want_d
         # kernel 3: within the bound of its plain version, bit-equal to
         # kernel 1 on the same (query, row), -inf on pad ids
@@ -1297,7 +1304,7 @@ def main() -> int:
             replaces=f"src/repro/kernels/ash_score.py:{line}",
             launches=launches[name],
             max_abs_err=max_err[name],
-            ms=event_ms(fn), plain_ms=event_ms(plain_fn, iters=10),
+            ms=probe.graph_ms(fn), plain_ms=event_ms(plain_fn, iters=10),
             bound_ms=bound_ms, bound_by=bound_by,
             library_ms=event_ms(lib_fn), library_call=lib_call,
         ))
@@ -1365,7 +1372,7 @@ def main() -> int:
             replaces=f"src/repro/kernels/ash_score.py:{line}",
             launches=launches_b[name],
             max_abs_err=max_err[name],
-            ms=event_ms(fn), plain_ms=event_ms(plain_fn, iters=10),
+            ms=probe.graph_ms(fn), plain_ms=event_ms(plain_fn, iters=10),
             bound_ms=bound_ms, bound_by=bound_by,
             library_ms=event_ms(lib_fn), library_call=lib_call,
         ))
@@ -1414,7 +1421,7 @@ def main() -> int:
             keys_per_query=int(keys.shape[1]),
             valid_keys=int((keys != -1).sum()),
             scan_ms=scan_only_ms(fn),
-            merge_ms=event_ms(lambda: TK.ash_topk_merge_cuda(
+            merge_ms=probe.graph_ms(lambda: TK.ash_topk_merge_cuda(
                 keys, kk, run, rows=trows)),
             merge_plain_ms=event_ms(merge_plain),
             merge_equals_plain=True)
@@ -1423,6 +1430,14 @@ def main() -> int:
                    merge_ms=fused_split[row["name"]]["merge_ms"])
     results["fused_strip"] = dict(kernels_2_4_6=fused_split)
     log("fused_strip", **results["fused_strip"])
+    # the four scans that share the asymmetric scoring routine, alone
+    results["scans"] = {
+        "ash_score": rows[0]["ms"],
+        "ash_score_topk_scan": fused_split["ash_score_topk"]["scan_ms"],
+        "ash_score_gather": rows[2]["ms"],
+        "ash_score_gather_topk_scan":
+            fused_split["ash_score_gather_topk"]["scan_ms"]}
+    log("scans", **results["scans"])
     log("gather_shape", **results["gather_shape"])
     del V32, Vg, V8
 

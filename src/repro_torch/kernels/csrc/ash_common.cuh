@@ -1,7 +1,8 @@
 // Routines shared by the ASH scan kernels (ash_score.cu, ash_gather.cu,
-// ash_coarse.cu): the operand block, the code unpack, the Eq. 20
-// epilogue and metric tail, the order-preserving selection keys, and the
-// bitrate x metric dispatch of the C entry points.
+// ash_coarse.cu): the operand block, the code unpack (integer, and exact
+// fp32 without a conversion), the Eq. 20 epilogue and metric tail, the
+// order-preserving selection keys, and the bitrate x metric dispatch of
+// the C entry points.
 //
 // Every score is computed in one fixed order: the dot term
 // accumulated sequentially over the code dimensions (fp32 FMA for the
@@ -32,6 +33,12 @@ struct ScanArgs {
   const float* qterm;     // (m,)  null for dot
   const float* rowterm;   // (n,)  null for dot
   int n, m, wd, C;
+  bool vec4;  // rows read as 16-byte loads: wd % 4 == 0, 16-byte base
+  // 151 << 23, the exponent bits of 2^24, passed at run time: code_float's
+  // exponents derive from it, so the compiler keeps them in registers and
+  // each code's and-or is one LOP3 (with both constants as immediates it
+  // splits into two, and the integer pipe runs at half the FMA rate)
+  uint32_t expo24;
 };
 
 ScanArgs make_args(const void* codes, const void* q_proj, const void* scale,
@@ -51,6 +58,8 @@ ScanArgs make_args(const void* codes, const void* q_proj, const void* scale,
   a.m = m;
   a.wd = wd;
   a.C = C;
+  a.vec4 = wd % 4 == 0 && (reinterpret_cast<uintptr_t>(codes) & 15u) == 0;
+  a.expo24 = 151u << 23;
   return a;
 }
 
@@ -60,6 +69,65 @@ __device__ __forceinline__ int code_value(uint32_t word, int c) {
   constexpr uint32_t LEVEL_MASK = (1u << B) - 1u;
   constexpr int GMAX = (1 << B) - 1;
   return 2 * (int)((word >> (c * B)) & LEVEL_MASK) - GMAX;
+}
+
+// The same grid value as an exact float, with no int-to-float conversion
+// (I2F issues at an eighth of the fp32 FMA rate on sm_90).  The level's B
+// bits go to mantissa position s of a float with exponent E = 24 - s,
+// where they weigh 2 each: its value is 2^E + 2*level exactly, and one
+// subtraction of 2^E + 2^B - 1 (an integer below 2^24, so exact) leaves
+// 2*level - (2^B - 1) exactly, the float of code_value.  The codes of a
+// word fall into segments of K = 23/B - 1 codes; segment g is read from
+// one copy of the word shifted so that its codes sit at positions B, 2B,
+// .., KB (all inside the 23-bit mantissa): one shift a segment, then an
+// and-or (one LOP3, the exponent bits from expo24 = ScanArgs::expo24 in a
+// register) and one FADD a code.  c must fold to a constant (an unrolled
+// loop), so that the shifts, masks and subtrahends are immediates.
+template <int B>
+__device__ __forceinline__ float code_float(uint32_t word, int c,
+                                            uint32_t expo24) {
+  constexpr uint32_t LEVEL_MASK = (1u << B) - 1u;
+  constexpr uint32_t GMAX = (1u << B) - 1u;
+  constexpr int K = 23 / B - 1;  // codes a segment
+  const int g = c / K, s = B * (1 + c % K);
+  const uint32_t w = g == 0 ? word << B : word >> (B * (g * K - 1));
+  const uint32_t expo = expo24 - ((uint32_t)s << 23);  // 2^E, E = 24 - s
+  const uint32_t sub = ((uint32_t)(127 + 24 - s) << 23) | (GMAX << (s - 1));
+  return __fsub_rn(__uint_as_float((w & (LEVEL_MASK << s)) | expo),
+                   __uint_as_float(sub));
+}
+
+// Calls f(wv, w) for w = 0, 1, .., wd - 1 in order, wv[r] holding word w
+// of row j[r]: the rows are read as 16-byte loads where a.vec4 allows
+// it, else word by word.
+template <int ROWS, typename F>
+__device__ __forceinline__ void for_each_word(const ScanArgs& a,
+                                              const int (&j)[ROWS], F&& f) {
+  if (a.vec4) {
+    for (int w4 = 0; w4 < a.wd / 4; ++w4) {
+      uint4 u[ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+        u[r] = __ldg(reinterpret_cast<const uint4*>(
+                         a.codes + (size_t)j[r] * a.wd) + w4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        uint32_t wv[ROWS];
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r)
+          wv[r] = e == 0 ? u[r].x : e == 1 ? u[r].y : e == 2 ? u[r].z : u[r].w;
+        f(wv, 4 * w4 + e);
+      }
+    }
+  } else {
+    for (int w = 0; w < a.wd; ++w) {
+      uint32_t wv[ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+        wv[r] = __ldg(a.codes + (size_t)j[r] * a.wd + w);
+      f(wv, w);
+    }
+  }
 }
 
 // Eq. 20: dot*SCALE + bias + OFFSET, unfused, in this order.

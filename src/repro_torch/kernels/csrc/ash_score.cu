@@ -14,12 +14,23 @@
 // FLOP/byte, above the card's 20 FLOP/byte ridge for fp32 outside the
 // tensor cores (67 TFLOP/s over 3.35 TB/s).  Below m ~ 4 it is bytes.
 //
-// What the design does about it:
+// The FMAs are not the only instructions a code costs: its unpack, and
+// the shared loads of the query values, issue from the same warp
+// schedulers, and the shared loads' broadcasts take shared-memory
+// bandwidth, so neither the FMA rate nor the bytes alone bound the scan
+// (kernels/probe.py takes each part out in turn).  What the design does
+// about it:
 //   * codes stay packed in device memory; each thread loads its own
-//     row's words and unpacks them in registers (shift, mask, 2l-(2^b-1));
+//     rows' words, as 16-byte loads where the rows allow it (ScanArgs
+//     vec4), and unpacks them in registers with code_float
+//     (ash_common.cuh): an and-or and an FADD a code build the exact float
+//     of 2l - (2^b - 1), with no int-to-float conversion (which issues at
+//     an eighth of the FMA rate);
 //   * the block's query chunk (MT queries) sits in shared memory laid out
 //     [k][MT], so the MT query values of one code dimension are two
-//     16-byte shared loads broadcast to the warp;
+//     16-byte shared loads broadcast to the warp; the materializing
+//     kernel gives each thread SCORE_ROWS rows, which share those loads
+//     (8 FMAs a row and code, about 3 other instructions);
 //   * accumulation is plain fp32 FMA in a fixed sequential order over k,
 //     and the epilogue uses unfused round-to-nearest ops in the plain
 //     version's order, so both kernels produce the same score for the
@@ -42,7 +53,9 @@
 
 namespace {
 
-constexpr int SCORE_THREADS = 256;  // rows per materializing block
+constexpr int SCORE_THREADS = 256;  // threads per materializing block
+constexpr int SCORE_ROWS = 3;       // rows per thread, sharing query loads
+constexpr int SCORE_MIN_BLOCKS = 1; // __launch_bounds__ blocks an SM
 
 // q_s[k * MT + i] = q_proj[m0 + i, k], zero for queries past m.
 __device__ __forceinline__ void load_query_chunk(const ScanArgs& a, int d_pad,
@@ -53,63 +66,90 @@ __device__ __forceinline__ void load_query_chunk(const ScanArgs& a, int d_pad,
   }
 }
 
-// The shared routine of both kernels: unpack row j, accumulate its dot
-// products with the MT queries of the chunk, apply the Eq. 20 epilogue
-// acc*SCALE + <q, mu_c> + OFFSET and the metric tail.
-template <int B, int METRIC>
-__device__ __forceinline__ void score_row(const ScanArgs& a, int j, int m0,
-                                          const float* __restrict__ q_s,
-                                          float out[MT]) {
+// The shared routine of both kernels: unpack rows j[0..ROWS) (code_float,
+// no conversion), accumulate each row's dot products with the MT queries
+// of the chunk, then apply the Eq. 20 epilogue acc*SCALE + <q, mu_c> +
+// OFFSET and the metric tail.  Each of a row's MT sums is one sequential
+// fp32 FMA chain over k, whatever ROWS is; the ROWS rows share each pair
+// of 16-byte shared loads of the MT query values of a code dimension.
+template <int B, int METRIC, int ROWS>
+__device__ __forceinline__ void score_rows(const ScanArgs& a,
+                                           const int (&j)[ROWS], int m0,
+                                           const float* __restrict__ q_s,
+                                           float (&out)[ROWS][MT]) {
   constexpr int CPW = 32 / B;
-  float acc[MT];
+  float sc[ROWS], off[ROWS], rt[ROWS];
+  int cl[ROWS];
+  float acc[ROWS][MT];
 #pragma unroll
-  for (int i = 0; i < MT; ++i) acc[i] = 0.f;
-  const uint32_t* row = a.codes + (size_t)j * a.wd;
-  for (int w = 0; w < a.wd; ++w) {
-    const uint32_t word = __ldg(row + w);
-    const float4* qw = reinterpret_cast<const float4*>(q_s + w * CPW * MT);
+  for (int r = 0; r < ROWS; ++r) {  // headers in flight during the scan
+    sc[r] = __ldg(a.scale + j[r]);
+    off[r] = __ldg(a.offset + j[r]);
+    cl[r] = __ldg(a.cluster + j[r]);
+    rt[r] = (METRIC == METRIC_DOT) ? 0.f : __ldg(a.rowterm + j[r]);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) acc[r][i] = 0.f;
+  }
+  const float4* q4 = reinterpret_cast<const float4*>(q_s);
+  const uint32_t expo24 = a.expo24;
+  auto word = [&](const uint32_t (&wv)[ROWS], int w) {
 #pragma unroll
     for (int c = 0; c < CPW; ++c) {
-      const float v = (float)code_value<B>(word, c);
-      const float4 lo = qw[2 * c], hi = qw[2 * c + 1];
-      acc[0] = fmaf(lo.x, v, acc[0]);
-      acc[1] = fmaf(lo.y, v, acc[1]);
-      acc[2] = fmaf(lo.z, v, acc[2]);
-      acc[3] = fmaf(lo.w, v, acc[3]);
-      acc[4] = fmaf(hi.x, v, acc[4]);
-      acc[5] = fmaf(hi.y, v, acc[5]);
-      acc[6] = fmaf(hi.z, v, acc[6]);
-      acc[7] = fmaf(hi.w, v, acc[7]);
-    }
-  }
-  const float sc = __ldg(a.scale + j);
-  const float off = __ldg(a.offset + j);
-  const int cl = __ldg(a.cluster + j);
-  const float rt = (METRIC == METRIC_DOT) ? 0.f : __ldg(a.rowterm + j);
+      const float4 lo = q4[2 * (w * CPW + c)], hi = q4[2 * (w * CPW + c) + 1];
 #pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    const int qi = min(m0 + i, a.m - 1);
-    const float bias = __ldg(a.ipq + (size_t)qi * a.C + cl);
-    const float qt = (METRIC == METRIC_DOT) ? 0.f : __ldg(a.qterm + qi);
-    out[i] = metric_tail<METRIC>(eq20_base(acc[i], sc, bias, off), qt, rt);
+      for (int r = 0; r < ROWS; ++r) {
+        const float v = code_float<B>(wv[r], c, expo24);
+        acc[r][0] = fmaf(lo.x, v, acc[r][0]);
+        acc[r][1] = fmaf(lo.y, v, acc[r][1]);
+        acc[r][2] = fmaf(lo.z, v, acc[r][2]);
+        acc[r][3] = fmaf(lo.w, v, acc[r][3]);
+        acc[r][4] = fmaf(hi.x, v, acc[r][4]);
+        acc[r][5] = fmaf(hi.y, v, acc[r][5]);
+        acc[r][6] = fmaf(hi.z, v, acc[r][6]);
+        acc[r][7] = fmaf(hi.w, v, acc[r][7]);
+      }
+    }
+  };
+  for_each_word<ROWS>(a, j, word);
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int qi = min(m0 + i, a.m - 1);
+      const float bias = __ldg(a.ipq + (size_t)qi * a.C + cl[r]);
+      const float qt = (METRIC == METRIC_DOT) ? 0.f : __ldg(a.qterm + qi);
+      out[r][i] = metric_tail<METRIC>(eq20_base(acc[r][i], sc[r], bias,
+                                                off[r]), qt, rt[r]);
+    }
   }
 }
 
+// grid (ceil(n / (SCORE_THREADS * SCORE_ROWS)), ceil(m / MT)): thread x
+// of a block scores rows x, x + SCORE_THREADS, .. of its block's span;
+// a row past n repeats row n - 1 and is not stored.
 template <int B, int METRIC>
-__global__ void __launch_bounds__(SCORE_THREADS)
+__global__ void __launch_bounds__(SCORE_THREADS, SCORE_MIN_BLOCKS)
     ash_score_kernel(ScanArgs a, int d_pad, float* __restrict__ out) {
   extern __shared__ float4 smem_f4[];
   float* q_s = reinterpret_cast<float*>(smem_f4);
   const int m0 = blockIdx.y * MT;
   load_query_chunk(a, d_pad, m0, q_s);
   __syncthreads();
-  const int j = blockIdx.x * SCORE_THREADS + threadIdx.x;
-  if (j >= a.n) return;
-  float s[MT];
-  score_row<B, METRIC>(a, j, m0, q_s, s);
+  const int j0 = blockIdx.x * (SCORE_THREADS * SCORE_ROWS) + threadIdx.x;
+  if (j0 >= a.n) return;
+  int j[SCORE_ROWS];
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
-    if (m0 + i < a.m) out[(size_t)(m0 + i) * a.n + j] = s[i];
+  for (int r = 0; r < SCORE_ROWS; ++r)
+    j[r] = min(j0 + r * SCORE_THREADS, a.n - 1);
+  float s[SCORE_ROWS][MT];
+  score_rows<B, METRIC, SCORE_ROWS>(a, j, m0, q_s, s);
+#pragma unroll
+  for (int r = 0; r < SCORE_ROWS; ++r) {
+    const int jr = j0 + r * SCORE_THREADS;
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+      if (jr < a.n && m0 + i < a.m) out[(size_t)(m0 + i) * a.n + jr] = s[r][i];
+  }
 }
 
 template <int B, int METRIC, int N>
@@ -125,7 +165,11 @@ __global__ void __launch_bounds__(TOPK_BLOCK_N, 2)
   __syncthreads();
   span_topk<N>(a, mask, L, tiles_per_span, gridDim.x, q_s + d_pad * MT,
                strip, [&](int j, float* s) {
-                 score_row<B, METRIC>(a, j, m0, q_s, s);
+                 const int jj[1] = {j};
+                 float o[1][MT];
+                 score_rows<B, METRIC, 1>(a, jj, m0, q_s, o);
+#pragma unroll
+                 for (int i = 0; i < MT; ++i) s[i] = o[0][i];
                });
 }
 
@@ -135,7 +179,8 @@ struct LaunchScore {
     const size_t smem = (size_t)d_pad * MT * sizeof(float);
     int rc = set_smem(ash_score_kernel<B, METRIC>, smem);
     if (rc) return rc;
-    dim3 grid((a.n + SCORE_THREADS - 1) / SCORE_THREADS, (a.m + MT - 1) / MT);
+    constexpr int PER_BLOCK = SCORE_THREADS * SCORE_ROWS;
+    dim3 grid((a.n + PER_BLOCK - 1) / PER_BLOCK, (a.m + MT - 1) / MT);
     ash_score_kernel<B, METRIC><<<grid, SCORE_THREADS, smem, stream>>>(a, d_pad, out);
     return (int)cudaGetLastError();
   }

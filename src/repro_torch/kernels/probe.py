@@ -1,0 +1,362 @@
+"""Same-call comparison of scan-kernel variants on the card.
+
+    PYTHONPATH=src python -m repro_torch.kernels.probe [--parent DIR]
+
+Builds variants of ``csrc/ash_score.cu`` (kernels 1, 2) and
+``csrc/ash_gather.cu`` (kernels 3, 4), listed in ``VARIANTS``: the
+sources as they are ("shipped"), copies with tuning constants
+(``constexpr int NAME = V;``) replaced or with a source edit made (an
+other unpack, word loads), diagnostics with a part of the work taken
+out, and, with ``--parent``, the sources of another checkout's ``csrc``
+directory (for example a ``git archive`` of the parent commit).  One
+``nvcc`` per library, all started together, into
+``build/repro_torch/probe/``.  Then, on the operands of
+``chip_smoke.py``'s phase 7 (n = 10^6 vectors at D = 256, b = 2,
+d = 128, 64 landmarks; 8 queries; the IVF candidate table at nprobe = 8),
+it times each variant's kernels in two passes over the variants (the
+second in reverse order), each time as 30 launches captured in a CUDA
+graph and replayed, and holds the output of every variant but the
+diagnostics EQUAL to the shipped kernel's: kernels 1 and 3 bit for bit,
+and the key strips of the fused scans (kernels 2 and 4) key for key.
+Prints one JSON object and writes it to ``chiprun_out/probe.json``.
+Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import pathlib
+import re
+import subprocess
+import sys
+
+import torch
+
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels import ash_score as TK
+
+ROOT = pathlib.Path(__file__).resolve().parents[3]
+PROBE_DIR = _build.BUILD_DIR / "probe"
+# Source edits of the probe's variants: (file, old text, new text).
+# code_float with both constants of its and-or as immediates (the
+# compiler then splits the and-or into two LOP3s a code)
+IMMEDIATE = ("ash_common.cuh",
+             "  const uint32_t expo = expo24 - ((uint32_t)s << 23);",
+             "  const uint32_t expo = (uint32_t)(127 + 24 - s) << 23;")
+# code_float through a denormal: l * 2^(s - 149) times 2^100, then times
+# 2^(50 - s) minus 2^B - 1 in one FFMA (one integer op and two FMA-pipe
+# ops a code); the same floats
+DENORMAL = ("ash_common.cuh", """\
+  const uint32_t expo = expo24 - ((uint32_t)s << 23);  // 2^E, E = 24 - s
+  const uint32_t sub = ((uint32_t)(127 + 24 - s) << 23) | (GMAX << (s - 1));
+  return __fsub_rn(__uint_as_float((w & (LEVEL_MASK << s)) | expo),
+                   __uint_as_float(sub));""", """\
+  const float d = __uint_as_float(w & (LEVEL_MASK << s));
+  return __fmaf_rn(__fmul_rn(d, __uint_as_float(227u << 23)),
+                   __uint_as_float((uint32_t)(127 + 50 - s) << 23),
+                   -(float)GMAX);""")
+# rows read as 4-byte words (a quarter of the unrolled loop body)
+WORD_LOADS = ("ash_common.cuh", "  a.vec4 = wd % 4 == 0 &&",
+              "  a.vec4 = false && wd % 4 == 0 &&")
+# diagnostics (outputs not compared): a part of the work taken out
+NO_UNPACK = ("ash_common.cuh", "  const int g = c / K, s = B * (1 + c % K);",
+             "  return __uint_as_float(word >> 9 | 0x3f800000u);\n"
+             "  const int g = c / K, s = B * (1 + c % K);")
+K1_NO_LDS = ("ash_score.cu",
+             "      const float4 lo = q4[2 * (w * CPW + c)], "
+             "hi = q4[2 * (w * CPW + c) + 1];",
+             "      const float4 lo = make_float4(0.1f * c, 0.2f, 0.3f, 0.4f),"
+             " hi = make_float4(0.5f, 0.6f, 0.7f, 0.8f + w);")
+SAME_ROWS = ("ash_common.cuh", "a.codes + (size_t)j[r] * a.wd) + w4);",
+             "a.codes + (size_t)(r & 1) * a.wd) + w4);")
+K1_NO_MATH = ("ash_score.cu",
+              "  auto word = [&](const uint32_t (&wv)[ROWS], int w) {",
+              "  auto word = [&](const uint32_t (&wv)[ROWS], int w) {\n"
+              "    for (int r = 0; r < ROWS; ++r) acc[r][0] = __fadd_rn("
+              "acc[r][0], __uint_as_float(wv[r] >> 9 | 0x3f800000u));\n"
+              "    return;")
+K3_NO_MATH = ("ash_gather.cu",
+              "  auto word = [&](const uint32_t (&wv)[P], int w) {",
+              "  auto word = [&](const uint32_t (&wv)[P], int w) {\n"
+              "    for (int p = 0; p < P; ++p) acc[p] = __fadd_rn("
+              "acc[p], __uint_as_float(wv[p] >> 9 | 0x3f800000u));\n"
+              "    return;")
+# (label, source, {constant: value}, edits, compared, fused scan too);
+# "shipped" is the source as it is.  Without the fused scan, its C entry
+# point is compiled out (a faster build) and only kernel 1 or 3 is timed.
+VARIANTS = (
+    ("shipped", "ash_score", {}, (), True, True),
+    ("k1_immediate_exponents", "ash_score", {}, (IMMEDIATE,), True, True),
+    ("k1_denormal", "ash_score", {}, (DENORMAL,), True, False),
+    ("k1_word_loads", "ash_score", {}, (WORD_LOADS,), True, False),
+    ("k1_rows1", "ash_score", {"SCORE_ROWS": 1}, (), True, False),
+    ("k1_rows2", "ash_score", {"SCORE_ROWS": 2}, (), True, False),
+    ("k1_rows2_min_blocks3", "ash_score",
+     {"SCORE_ROWS": 2, "SCORE_MIN_BLOCKS": 3}, (), True, False),
+    ("k1_rows4", "ash_score", {"SCORE_ROWS": 4}, (), True, False),
+    ("k1_threads128", "ash_score", {"SCORE_THREADS": 128}, (), True, False),
+    ("k1_threads128_min_blocks5", "ash_score",
+     {"SCORE_THREADS": 128, "SCORE_MIN_BLOCKS": 5}, (), True, False),
+    ("k1_min_blocks3", "ash_score", {"SCORE_MIN_BLOCKS": 3}, (), True,
+     False),
+    ("k1_diag_no_unpack", "ash_score", {}, (NO_UNPACK,), False, False),
+    ("k1_diag_no_shared_loads", "ash_score", {}, (K1_NO_LDS,), False, False),
+    ("k1_diag_two_rows_only", "ash_score", {}, (SAME_ROWS,), False,
+     False),
+    ("k1_diag_loads_only", "ash_score", {}, (K1_NO_MATH,), False, False),
+    ("shipped", "ash_gather", {}, (), True, True),
+    ("k3_immediate_exponents", "ash_gather", {}, (IMMEDIATE,), True, True),
+    ("k3_denormal", "ash_gather", {}, (DENORMAL,), True, False),
+    ("k3_word_loads", "ash_gather", {}, (WORD_LOADS,), True, False),
+    ("k3_positions1", "ash_gather", {"GATHER_POSITIONS": 1}, (), True, False),
+    ("k3_positions4", "ash_gather", {"GATHER_POSITIONS": 4}, (), True,
+     False),
+    ("k3_threads64", "ash_gather", {"GATHER_THREADS": 64}, (), True, False),
+    ("k3_threads256", "ash_gather", {"GATHER_THREADS": 256}, (), True,
+     False),
+    ("k3_min_blocks12", "ash_gather", {"GATHER_MIN_BLOCKS": 12}, (), True,
+     False),
+    ("k3_min_blocks16", "ash_gather", {"GATHER_MIN_BLOCKS": 16}, (), True,
+     False),
+    ("k3_diag_no_unpack", "ash_gather", {}, (NO_UNPACK,), False, False),
+    ("k3_diag_two_rows_only", "ash_gather", {}, (SAME_ROWS,), False,
+     False),
+    ("k3_diag_loads_only", "ash_gather", {}, (K3_NO_MATH,), False, False),
+)
+# compiling the fused scan's C entry point out (the last one of each file)
+SCAN_ONLY = {
+    "ash_score": ("ash_score.cu", "int ash_score_topk_launch(",
+                  "#if 0\nint ash_score_topk_launch("),
+    "ash_gather": ("ash_gather.cu", "int ash_gather_topk_launch(",
+                   "#if 0\nint ash_gather_topk_launch("),
+}
+K, NPROBE, REQ_M = 100, 8, 8
+
+
+def _variant_dir(label: str, csrc: pathlib.Path, source: str, consts: dict,
+                 edits) -> pathlib.Path:
+    """A copy of ``csrc`` with ``consts`` replaced in ``<source>.cu`` and
+    each (file, old, new) of ``edits`` made once."""
+    out = PROBE_DIR / label / "csrc"
+    out.mkdir(parents=True, exist_ok=True)
+    for f in csrc.glob("*.cu*"):
+        text = f.read_text()
+        if f.stem == source and f.suffix == ".cu":
+            for name, value in consts.items():
+                text, n = re.subn(rf"constexpr int {name} = \d+;",
+                                  f"constexpr int {name} = {value};", text)
+                if n != 1:
+                    raise ValueError(f"{label}: no constant {name} in "
+                                     f"{f.name}")
+        for fname, old, new in edits:
+            if fname == f.name:
+                if text.count(old) != 1:
+                    raise ValueError(f"{label}: edit not found once in "
+                                     f"{f.name}: {old[:60]!r}")
+                text = text.replace(old, new)
+                if fname.endswith(".cu") and new.startswith("#if 0"):
+                    text = text.replace('}  // extern "C"',
+                                        '#endif\n}  // extern "C"')
+        (out / f.name).write_text(text)
+    return out
+
+
+def build(variants) -> dict:
+    """{(label, source): library path}, one nvcc each, in parallel."""
+    procs = []
+    for label, csrc, source, consts, edits in variants:
+        d = _variant_dir(label, csrc, source, consts, edits)
+        lib = d.parent / f"{source}.so"
+        log = open(d.parent / f"{source}.log", "w")
+        procs.append((label, source, lib, log, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+             str(d / f"{source}.cu")], stdout=log,
+            stderr=subprocess.STDOUT)))
+    libs, failed = {}, []
+    for label, source, lib, log, proc in procs:
+        rc = proc.wait()
+        log.close()
+        if rc:
+            failed.append(f"{label}/{source}: nvcc exit {rc}")
+        libs[(label, source)] = lib
+    if failed:
+        raise RuntimeError("probe build failed: " + ", ".join(failed))
+    return libs
+
+
+def _load(path: pathlib.Path, source: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for fn, (n_ptr, n_int) in TK._ENTRY_POINTS[source].items():
+        if not hasattr(lib, fn):  # compiled out
+            continue
+        getattr(lib, fn).argtypes = ([ctypes.c_void_p] * n_ptr
+                                     + [ctypes.c_int] * n_int
+                                     + [ctypes.c_void_p])
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def graph_ms(fn, iters=30) -> float:
+    """Device ms a call: ``iters`` calls captured in a CUDA graph, its
+    replay timed with CUDA events (the host's launch rate plays no part),
+    the mean of three replays."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (3 * iters)
+
+
+def operands(dev):
+    """Phase 7's operands: the flat and IVF indexes' dot-metric scan
+    operands for 8 held-out queries, and the nprobe = 8 table."""
+    from repro_torch.core import ash as A
+    from repro_torch.core.types import ASHConfig
+    from repro_torch.data.synthetic import embedding_dataset
+    from repro_torch.index import AshIndex
+    from repro_torch.index import ivf as IV
+    from repro_torch.kernels import ops
+
+    data = embedding_dataset(1_000_000 + REQ_M, 256, seed=0, device=dev)
+    X, q8 = data[:-REQ_M], data[-REQ_M:]
+    cfg = ASHConfig(b=2, d=128, n_landmarks=64)
+    model, _ = A.train(torch.Generator().manual_seed(0), X, cfg, device=dev)
+    index = AshIndex.build(torch.Generator().manual_seed(0), X, cfg,
+                           metric="dot", device=dev, model=model)
+    flat = ops._score_args(index.prepare(q8), index.payload)
+    ivf = AshIndex.from_parts(model, index.payload, backend="ivf",
+                              metric="dot")
+    st = ivf._state
+    prep = ivf.prepare(q8)
+    rows = IV.candidate_rows(st, IV._probe_lists(st, prep, NPROBE))
+    return flat, ops._score_args(prep, st.payload), rows.contiguous()
+
+
+def calls(lib, source, fused, flat, gath, rows, b, n_sm):
+    """{kernel: (launch, output)} of one library on the operands: kernel
+    1 or 3, and with ``fused`` the scan of kernel 2 or 4."""
+    P = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    S = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    out = {}
+    if source == "ash_score":
+        codes, q, sc, off, cl, ipq = flat
+        n, wd = codes.shape
+        m, C = q.shape[0], ipq.shape[1]
+        res = torch.empty(m, n, device=codes.device)
+        head = [P(codes), P(q), P(sc), P(off), P(cl), P(ipq), None, None]
+        out["k1"] = (lambda: lib.ash_score_launch(
+            *head, P(res), n, m, wd, C, b, 0, S()), res)
+        if not fused:
+            return out
+        n_spans, per, L = ref.span_geometry(n, K, None, 2 * n_sm)
+        strip = torch.empty(m, n_spans * L, dtype=torch.int64,
+                            device=codes.device)
+        out["k2_scan"] = (lambda: lib.ash_score_topk_launch(
+            *head, None, P(strip), n, m, wd, C, b, 0, L, per, n_spans,
+            S()), strip)
+    else:
+        codes, q, sc, off, cl, ipq = gath
+        n, wd = codes.shape
+        m, C, R = q.shape[0], ipq.shape[1], rows.shape[1]
+        res = torch.empty(m, R, device=codes.device)
+        head = [P(codes), P(rows), P(q), P(sc), P(off), P(cl), P(ipq), None,
+                None]
+        out["k3"] = (lambda: lib.ash_gather_launch(
+            *head, P(res), n, m, R, wd, C, b, 0, S()), res)
+        if not fused:
+            return out
+        n_spans, per, L = ref.gather_span_geometry(R, m, K, None, n_sm)
+        strip = torch.empty(m, n_spans * L, dtype=torch.int64,
+                            device=codes.device)
+        out["k4_scan"] = (lambda: lib.ash_gather_topk_launch(
+            *head, P(strip), n, m, R, wd, C, b, 0, L, per, n_spans,
+            S()), strip)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", type=pathlib.Path,
+                    help="another checkout's kernels/csrc directory, "
+                         "built and timed as the variant 'parent'")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("probe: needs a CUDA card", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    variants, spec = [], {}
+    for label, source, consts, edits, compared, fused in VARIANTS:
+        if not fused:
+            edits = (*edits, SCAN_ONLY[source])
+        variants.append((label, _build.CSRC, source, consts, edits))
+        spec[(label, source)] = (compared, fused)
+    if args.parent is not None:
+        for source in ("ash_score", "ash_gather"):
+            variants.append(("parent", args.parent.resolve(), source, {}, ()))
+            spec[("parent", source)] = (True, True)
+    libs = build(variants)
+    flat, gath, rows = operands(dev)
+    b = 2
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    runs = {}
+    for (label, source), path in libs.items():
+        compared, fused = spec[(label, source)]
+        for kern, (fn, res) in calls(_load(path, source), source, fused,
+                                     flat, gath, rows, b, n_sm).items():
+            runs[(label, kern)] = (fn, res, compared)
+    # every compared variant's output equal to the shipped kernel's
+    want, equal = {}, {}
+    for (label, kern), (fn, res, compared) in runs.items():
+        res.fill_(0)
+        rc = fn()
+        if rc:
+            raise RuntimeError(f"{label}/{kern}: cudaError {rc}")
+        torch.cuda.synchronize()
+        if label == "shipped":
+            want[kern] = res.clone()
+    for (label, kern), (_, res, compared) in runs.items():
+        if compared:
+            equal[f"{label}/{kern}"] = bool(torch.equal(res, want[kern]))
+    times = {}
+    order = list(runs)
+    for pass_order in (order, order[::-1]):
+        for key in pass_order:
+            times.setdefault(f"{key[0]}/{key[1]}", []).append(
+                graph_ms(runs[key][0]))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    regs = {}
+    for (label, source), path in libs.items():
+        for ln in path.with_suffix(".log").read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                cur = m.group(1)
+            m = re.search(r"Used (\d+) registers", ln)
+            if m and ("ash_score_kernelILi2ELi0E" in cur
+                      or "ash_gather_kernelILi2ELi0E" in cur):
+                regs[f"{label}/{source}"] = int(m.group(1))
+    result = dict(device=smi, torch=torch.__version__,
+                  ms=times, equal_to_shipped=equal, registers=regs)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "probe.json").write_text(json.dumps(result, indent=1))
+    print(json.dumps(result))
+    return 0 if all(equal.values()) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

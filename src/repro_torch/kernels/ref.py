@@ -123,6 +123,31 @@ def ash_score_gather_ref(
     return _gathered_tail(base, rows, safe, qterm, rowterm, metric)
 
 
+_U32 = 2.0**-24  # fp32 unit roundoff
+
+
+def score_tolerance(A, bias, off, qterm, rowterm, base, metric, d_pad):
+    """Elementwise bound on |kernel - plain| for one score matrix.
+
+    Both sum d_pad products q_k v_k in fp32, in different orders: each
+    is within gamma_d * sum|q_k v_k| of the exact sum (gamma_d =
+    d_pad*u / (1 - d_pad*u)), so they differ by at most 2 gamma_d A
+    with A = |scale| * (|q| @ |V|^T).  The epilogue's few roundings
+    (<= 4 per side, each within u of its operands) add 16 u of the
+    magnitudes involved.  l2 doubles the base term; cos scales it by
+    qterm * rowterm.
+    """
+    gamma = d_pad * _U32 / (1 - d_pad * _U32)
+    mag = A + bias.abs() + off.abs()[None, :]
+    if metric == "dot":
+        return 2 * gamma * A + 16 * _U32 * mag
+    if metric == "l2":
+        extra = qterm.abs()[:, None] + rowterm.abs()[None, :]
+        return 4 * gamma * A + 16 * _U32 * (2 * mag + extra + base.abs())
+    f = (qterm[:, None] * rowterm[None, :]).abs()
+    return f * (2 * gamma * A + 16 * _U32 * mag) + 16 * _U32 * base.abs()
+
+
 def _coarse_base(dot_int, q_scale, q_corr, scale, offset, bias):
     """Eq. 20 base of the coarse scan, in the coarse kernels' order:
     dotc = acc * q_scale; biasq = bias + q_corr; dotc * scale + biasq +

@@ -188,6 +188,51 @@ def test_gather_kernel_vs_plain_and_dense(cuda, metric, b, d, n, m, R):
                        [~pad])
 
 
+# Kernels 1 and 3 at edge shapes: every bitrate and metric; n and R not
+# multiples of a block's rows (768: 256 threads x 3) or positions (256:
+# 128 threads x 2), nor of a thread's rows or positions; m not a
+# multiple of the 8-query chunk; packed widths with wd % 4 != 0 (word
+# loads), and 16-byte rows whose base is not 16-byte aligned (word loads
+# too); a query whose candidates are all pads.  Each kernel within
+# ref.score_tolerance of its plain version, kernel 3 EQUAL to kernel 1.
+_EDGES = [(1, 100, 3001, 3, 700), (1, 33, 1025, 9, 513),
+          (2, 128, 5000, 8, 1000), (2, 100, 513, 13, 1537),
+          (4, 72, 1500, 11, 333), (4, 64, 511, 1, 511),
+          (8, 20, 700, 1, 129), (8, 32, 1537, 17, 1025)]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("b,d,n,m,R", _EDGES)
+def test_scan_kernels_edges(cuda, b, d, n, m, R, metric, aligned):
+    args = _args(1000 * b + d, b, d, n, m, 16, metric, cuda)
+    codes = args[0]
+    if not aligned:  # the same words from a base 4 bytes past alignment
+        buf = torch.empty(codes.numel() + 1, dtype=torch.int32, device=cuda)
+        buf[1:] = codes.reshape(-1)
+        args[0] = codes = buf[1:].view(codes.shape)
+    rows = _rows(R + m, m, R, n, cuda)
+    rows[m // 2] = -1
+    dense = TK.ash_score_cuda(*args, b=b, metric=metric)
+    got = TK.ash_score_gather_cuda(codes, rows, *args[1:], b=b,
+                                   metric=metric)
+    torch.cuda.synchronize()
+    want = TR.ash_score_metric_ref(*args, b=b, metric=metric)
+    want_g = TR.ash_score_gather_ref(codes, rows, *args[1:], b=b,
+                                     metric=metric)
+    _, q, scale, offset, cluster, ipq, qterm, rowterm = args
+    d_pad = codes.shape[1] * (32 // b)
+    V = Q.unpack_codes(codes, d_pad, b).float().abs()
+    tol = TR.score_tolerance((q.abs() @ V.T) * scale.abs()[None, :],
+                             ipq[:, cluster.long()], offset, qterm, rowterm,
+                             want, metric, d_pad)
+    assert ((dense - want).abs() <= tol).all()
+    live, safe = rows >= 0, rows.clamp(min=0).long()
+    assert torch.isneginf(got[~live]).all()
+    assert ((got - want_g).abs()[live] <= tol.gather(1, safe)[live]).all()
+    assert torch.equal(got[live], dense.gather(1, safe)[live])
+
+
 @pytest.mark.parametrize("metric", METRICS)
 @pytest.mark.parametrize("R,k", [(1000, 100), (1000, 7), (333, 1),
                                  (40, 32), (600, 128)])
