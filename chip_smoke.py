@@ -13,7 +13,7 @@ for exact rerank.  Phases, one line each:
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
      nvcc, one process per source in parallel (into
      ``build/repro_torch/``), and report ``-Xptxas -v`` registers and
-     spills of kernels 7, 4, 1 and 3;
+     spills of kernels 7, 4, 1, 3, 5 and 6;
   3. train and encode on the card (``AshIndex.build``), train a second
      time from the same seed (the models must be bit-identical), encode
      one vector twice alone and once as a row of a 64-row batch (all
@@ -805,10 +805,11 @@ def main() -> int:
                        and not ln.startswith("0 bytes stack frame, 0 bytes "
                                              "spill stores, 0 bytes spill")}
                       )[:4])
-    # registers and spills of kernels 7, 4, 1 and 3, and of their main-path
-    # instances (kernel 7 at b_k = b_v = 4 with 8 PV m-tiles; kernel 4 at
-    # b = 2, dot, lists of 128 keys for k = 100; kernels 1 and 3 at b = 2,
-    # dot)
+    # registers and spills of kernels 7, 4, 1, 3, 5 and 6, and of their
+    # main-path instances (kernel 7 at b_k = b_v = 4 with 8 PV m-tiles;
+    # kernel 4 at b = 2, dot, lists of 128 keys for k = 100; kernels 1, 3
+    # and 5 at b = 2, dot; kernel 6 at b = 2, dot, lists of 32 keys for the
+    # coarse plans' L = 32)
     results["ptxas"] = {
         "ash_kv_attn_kernel": ptxas_report(
             libs, "ash_kv_attn_kernel", "ash_kv_attn_kernelILi4ELi4ELi8E"),
@@ -819,6 +820,11 @@ def main() -> int:
             libs, "ash_score_kernel", "ash_score_kernelILi2ELi0E"),
         "ash_gather_kernel": ptxas_report(
             libs, "ash_gather_kernel", "ash_gather_kernelILi2ELi0E"),
+        "ash_coarse_kernel": ptxas_report(
+            libs, "ash_coarse_kernel", "ash_coarse_kernelILi2ELi0ELb0E"),
+        "ash_coarse_topk_kernel": ptxas_report(
+            libs, "ash_coarse_topk_kernel",
+            "ash_coarse_topk_kernelILi2ELi0ELi1E"),
     }
     log("ptxas", **results["ptxas"])
 

@@ -1,6 +1,6 @@
 // Routines shared by the ASH scan kernels (ash_score.cu, ash_gather.cu,
-// ash_coarse.cu): the operand block, the code unpack (integer, and exact
-// fp32 without a conversion), the Eq. 20 epilogue and metric tail, the
+// ash_coarse.cu): the operand block, the code unpack to exact fp32
+// without a conversion, the Eq. 20 epilogue and metric tail, the
 // order-preserving selection keys, and the bitrate x metric dispatch of
 // the C entry points.
 //
@@ -63,20 +63,12 @@ ScanArgs make_args(const void* codes, const void* q_proj, const void* scale,
   return a;
 }
 
-// Grid value 2*level - (2^B - 1) of code c of a packed word.
-template <int B>
-__device__ __forceinline__ int code_value(uint32_t word, int c) {
-  constexpr uint32_t LEVEL_MASK = (1u << B) - 1u;
-  constexpr int GMAX = (1 << B) - 1;
-  return 2 * (int)((word >> (c * B)) & LEVEL_MASK) - GMAX;
-}
-
-// The same grid value as an exact float, with no int-to-float conversion
+// A code's grid value as an exact float, with no int-to-float conversion
 // (I2F issues at an eighth of the fp32 FMA rate on sm_90).  The level's B
 // bits go to mantissa position s of a float with exponent E = 24 - s,
 // where they weigh 2 each: its value is 2^E + 2*level exactly, and one
 // subtraction of 2^E + 2^B - 1 (an integer below 2^24, so exact) leaves
-// 2*level - (2^B - 1) exactly, the float of code_value.  The codes of a
+// 2*level - (2^B - 1) exactly, the code's grid value.  The codes of a
 // word fall into segments of K = 23/B - 1 codes; segment g is read from
 // one copy of the word shifted so that its codes sit at positions B, 2B,
 // .., KB (all inside the 23-bit mantissa): one shift a segment, then an

@@ -1,25 +1,30 @@
 """Same-call comparison of scan-kernel variants on the card.
 
     PYTHONPATH=src python -m repro_torch.kernels.probe [--parent DIR]
+        [--source NAME]
 
-Builds variants of ``csrc/ash_score.cu`` (kernels 1, 2) and
-``csrc/ash_gather.cu`` (kernels 3, 4), listed in ``VARIANTS``: the
-sources as they are ("shipped"), copies with tuning constants
-(``constexpr int NAME = V;``) replaced or with a source edit made (an
-other unpack, word loads), diagnostics with a part of the work taken
-out, and, with ``--parent``, the sources of another checkout's ``csrc``
-directory (for example a ``git archive`` of the parent commit).  One
-``nvcc`` per library, all started together, into
+Builds variants of ``csrc/ash_score.cu`` (kernels 1, 2),
+``csrc/ash_gather.cu`` (kernels 3, 4) and ``csrc/ash_coarse.cu``
+(kernels 5, 6), listed in ``VARIANTS``: the sources as they are
+("shipped"), copies with tuning constants (``constexpr int NAME = V;``)
+replaced or with a source edit made (an other unpack, word loads,
+kernel 5 scored a row a thread with dp4a), diagnostics with a part of
+the work taken out, and, with ``--parent DIR``, the sources of another
+checkout's ``csrc`` directory (for example a ``git archive`` of the
+parent commit).  ``--source`` limits the run to some of the three
+files.  One ``nvcc`` per library, all started together, into
 ``build/repro_torch/probe/``.  Then, on the operands of
 ``chip_smoke.py``'s phase 7 (n = 10^6 vectors at D = 256, b = 2,
-d = 128, 64 landmarks; 8 queries; the IVF candidate table at nprobe = 8),
-it times each variant's kernels in two passes over the variants (the
-second in reverse order), each time as 30 launches captured in a CUDA
-graph and replayed, and holds the output of every variant but the
-diagnostics EQUAL to the shipped kernel's: kernels 1 and 3 bit for bit,
-and the key strips of the fused scans (kernels 2 and 4) key for key.
-Prints one JSON object and writes it to ``chiprun_out/probe.json``.
-Needs a CUDA card.
+d = 128, 64 landmarks; 8 queries; the IVF candidate table at nprobe = 8;
+the coarse int8 queries of the flat index; and, for kernel 5 alone
+("k5_wide"), random rows of b = 8 codes at d_pad = 2048, n = 2^16),
+it times each variant's
+kernels in two passes over the variants (the second in reverse order),
+each time as 30 launches captured in a CUDA graph and replayed, and
+holds the output of every variant but the diagnostics EQUAL to the
+shipped kernel's: kernels 1, 3 and 5 bit for bit, and the key strips of
+the fused scans (kernels 2, 4 and 6) key for key.  Prints one JSON
+object and writes it to ``chiprun_out/probe.json``.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -82,6 +87,74 @@ K3_NO_MATH = ("ash_gather.cu",
               "    for (int p = 0; p < P; ++p) acc[p] = __fadd_rn("
               "acc[p], __uint_as_float(wv[p] >> 9 | 0x3f800000u));\n"
               "    return;")
+# kernel 5 scored a row a thread, with kernel 6's dp4a byte-plane routine
+K5_DP4A_ROWS = (
+    ("ash_coarse.cu", "template <int B, int METRIC>\nstruct LaunchCoarse {",
+     """template <int B, int METRIC>
+__global__ void __launch_bounds__(256)
+    coarse_rows_kernel(ScanArgs a, CoarseQ cq, int d_pad,
+                       float* __restrict__ out) {
+  extern __shared__ int4 smem_i4[];
+  int32_t* q_s = reinterpret_cast<int32_t*>(smem_i4);
+  const int m0 = blockIdx.y * MT;
+  load_coarse_chunk<B>(a, cq, d_pad, m0, q_s);
+  __syncthreads();
+  const int j = blockIdx.x * 256 + threadIdx.x;
+  if (j >= a.n) return;
+  float s[MT];
+  coarse_row<B, METRIC>(a, cq, j, m0, q_s, s);
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+    if (m0 + i < a.m) out[(size_t)(m0 + i) * a.n + j] = s[i];
+}
+
+template <int B, int METRIC>
+struct LaunchCoarse {"""),
+    ("ash_coarse.cu", """\
+  static int run(ScanArgs a, CoarseQ cq, int d_pad, float* out,
+                 cudaStream_t stream) {
+    const CoarseChunks ck""", """\
+  static int run(ScanArgs a, CoarseQ cq, int d_pad, float* out,
+                 cudaStream_t stream) {
+    {
+      const size_t smem = coarse_chunk_bytes(d_pad);
+      int rc = set_smem(coarse_rows_kernel<B, METRIC>, smem);
+      if (rc) return rc;
+      dim3 grid((a.n + 255) / 256, (a.m + MT - 1) / MT);
+      coarse_rows_kernel<B, METRIC><<<grid, 256, smem, stream>>>(
+          a, cq, d_pad, out);
+      return (int)cudaGetLastError();
+    }
+    const CoarseChunks ck"""),
+)
+# kernel 5 with one tile a block (a block per 256 rows, not persistent)
+K5_TILE_BLOCKS = ("ash_coarse.cu",
+                  "  dim3 grid(n_tiles < per_y ? n_tiles : per_y, y);",
+                  "  dim3 grid(n_tiles, y);")
+# kernel 5's rings 16 bytes past their 128-byte boundary
+K5_RING_OFF16 = ("ash_coarse.cu", "  return (bytes + 127) / 128 * 128;",
+                 "  return (bytes + 127) / 128 * 128 + 16;")
+K5_COPIES4 = ("ash_coarse.cu", "    const int copy16 = (bases & 15u) == 0 &&",
+              "    const int copy16 = 0 &&")
+# diagnostics of kernel 5: the products as xors (no mma); no store (a
+# value no score takes); the accumulator's bits stored as the score (no
+# epilogue); the copies alone (each stage waited for and dropped)
+K5_NO_MMA = ("ash_coarse.cu", "                                         "
+             "uint32_t b1) {\n",
+             "                                         uint32_t b1) {\n"
+             "  c[0] += a0 ^ b0; c[1] += a1 ^ b1; c[2] += a2; c[3] += a3;\n"
+             "  return;\n")
+K5_NO_STORES = ("ash_coarse.cu", "      if (whole || j0 + row < a.n) {",
+                "      if (__float_as_uint(s0) == 0x7fc01234u) {")
+K5_NO_EPILOGUE = ("ash_coarse.cu",
+                  "  const float dotc = __fmul_rn((float)acc, qs);",
+                  "  return __int_as_float(acc);\n"
+                  "  const float dotc = __fmul_rn((float)acc, qs);")
+K5_COPIES_ONLY = ("ash_coarse.cu",
+                  "      const char* st = ring + (i % S) * SB;\n",
+                  "      if (k >= 0) {\n        __syncwarp();\n"
+                  "        continue;\n      }\n"
+                  "      const char* st = ring + (i % S) * SB;\n")
 # (label, source, {constant: value}, edits, compared, fused scan too);
 # "shipped" is the source as it is.  Without the fused scan, its C entry
 # point is compiled out (a faster build) and only kernel 1 or 3 is timed.
@@ -123,6 +196,28 @@ VARIANTS = (
     ("k3_diag_two_rows_only", "ash_gather", {}, (SAME_ROWS,), False,
      False),
     ("k3_diag_loads_only", "ash_gather", {}, (K3_NO_MATH,), False, False),
+    ("shipped", "ash_coarse", {}, (), True, True),
+    ("k5_groups1", "ash_coarse", {"COARSE_GROUPS": 1}, (), True, False),
+    ("k5_groups4", "ash_coarse", {"COARSE_GROUPS": 4}, (), True, False),
+    ("k5_stages2", "ash_coarse", {"COARSE_STAGES": 2}, (), True, False),
+    ("k5_stages3", "ash_coarse", {"COARSE_STAGES": 3}, (), True, False),
+    ("k5_stages6", "ash_coarse", {"COARSE_STAGES": 6}, (), True, False),
+    ("k5_warps4", "ash_coarse", {"COARSE_WARPS": 4}, (), True, False),
+    ("k5_min_blocks2", "ash_coarse", {"COARSE_MIN_BLOCKS": 2}, (), True,
+     False),
+    ("k5_min_blocks4", "ash_coarse", {"COARSE_MIN_BLOCKS": 4}, (), True,
+     False),
+    ("k5_ipq_global", "ash_coarse", {"IPQ_SMEM_MAX": 0}, (), True, False),
+    ("k5_tile_blocks", "ash_coarse", {}, (K5_TILE_BLOCKS,), True, False),
+    ("k5_copies4", "ash_coarse", {}, (K5_COPIES4,), True, False),
+    ("k5_ring_off16", "ash_coarse", {}, (K5_RING_OFF16,), True, False),
+    ("k5_dp4a_rows", "ash_coarse", {}, K5_DP4A_ROWS, True, False),
+    ("k5_diag_no_mma", "ash_coarse", {}, (K5_NO_MMA,), False, False),
+    ("k5_diag_no_stores", "ash_coarse", {}, (K5_NO_STORES,), False, False),
+    ("k5_diag_no_epilogue", "ash_coarse", {}, (K5_NO_EPILOGUE,), False,
+     False),
+    ("k5_diag_copies_only", "ash_coarse", {}, (K5_COPIES_ONLY,), False,
+     False),
 )
 # compiling the fused scan's C entry point out (the last one of each file)
 SCAN_ONLY = {
@@ -130,7 +225,10 @@ SCAN_ONLY = {
                   "#if 0\nint ash_score_topk_launch("),
     "ash_gather": ("ash_gather.cu", "int ash_gather_topk_launch(",
                    "#if 0\nint ash_gather_topk_launch("),
+    "ash_coarse": ("ash_coarse.cu", "int ash_coarse_topk_launch(",
+                   "#if 0\nint ash_coarse_topk_launch("),
 }
+SOURCES = ("ash_score", "ash_gather", "ash_coarse")
 K, NPROBE, REQ_M = 100, 8, 8
 
 
@@ -222,8 +320,10 @@ def graph_ms(fn, iters=30) -> float:
 
 def operands(dev):
     """Phase 7's operands: the flat and IVF indexes' dot-metric scan
-    operands for 8 held-out queries, and the nprobe = 8 table."""
+    operands for 8 held-out queries, the nprobe = 8 table, and the flat
+    index's coarse operands for the same queries."""
     from repro_torch.core import ash as A
+    from repro_torch.core import scoring as S
     from repro_torch.core.types import ASHConfig
     from repro_torch.data.synthetic import embedding_dataset
     from repro_torch.index import AshIndex
@@ -236,18 +336,40 @@ def operands(dev):
     model, _ = A.train(torch.Generator().manual_seed(0), X, cfg, device=dev)
     index = AshIndex.build(torch.Generator().manual_seed(0), X, cfg,
                            metric="dot", device=dev, model=model)
-    flat = ops._score_args(index.prepare(q8), index.payload)
+    fprep = index.prepare(q8)
+    flat = ops._score_args(fprep, index.payload)
+    coarse = ops._coarse_score_args(
+        fprep, S.prepare_coarse_queries(fprep, index._state.coarse.mean),
+        index.payload)
     ivf = AshIndex.from_parts(model, index.payload, backend="ivf",
                               metric="dot")
     st = ivf._state
     prep = ivf.prepare(q8)
     rows = IV.candidate_rows(st, IV._probe_lists(st, prep, NPROBE))
-    return flat, ops._score_args(prep, st.payload), rows.contiguous()
+    return flat, ops._score_args(prep, st.payload), rows.contiguous(), coarse
 
 
-def calls(lib, source, fused, flat, gath, rows, b, n_sm):
+def wide_coarse(dev, n=1 << 16, wd=512, C=64):
+    """Kernel 5's operands at a wide row, from seed 0: n rows of wd
+    random words (b = 8 codes, d_pad = 4 * wd), 8 int8 queries and
+    random headers."""
+    g = torch.Generator().manual_seed(0)
+    m = REQ_M
+    codes = torch.randint(-2**31, 2**31 - 1, (n, wd), generator=g,
+                          dtype=torch.int32)
+    q = torch.randint(-127, 128, (m, 4 * wd), generator=g,
+                      dtype=torch.int8)
+    f = lambda *shape: torch.rand(*shape, generator=g) + 0.5  # noqa: E731
+    cl = torch.randint(0, C, (n,), generator=g, dtype=torch.int32)
+    t = (codes, q, f(m) * 1e-3, f(m), f(n), f(n), cl, f(m, C))
+    return tuple(x.to(dev) for x in t)
+
+
+def calls(lib, source, fused, flat, gath, rows, coarse, wide, b, n_sm):
     """{kernel: (launch, output)} of one library on the operands: kernel
-    1 or 3, and with ``fused`` the scan of kernel 2 or 4."""
+    1, 3 or 5 (kernel 5 also on ``wide``, at b = 8), and with ``fused``
+    the scan of kernel 2, 4 or 6 (kernel 6 with lists of L = 32 keys, as
+    the coarse plans)."""
     P = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     S = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     out = {}
@@ -265,6 +387,28 @@ def calls(lib, source, fused, flat, gath, rows, b, n_sm):
         strip = torch.empty(m, n_spans * L, dtype=torch.int64,
                             device=codes.device)
         out["k2_scan"] = (lambda: lib.ash_score_topk_launch(
+            *head, None, P(strip), n, m, wd, C, b, 0, L, per, n_spans,
+            S()), strip)
+    elif source == "ash_coarse":
+        codes, q, qs, qc, sc, off, cl, ipq = coarse
+        n, wd = codes.shape
+        m, C = q.shape[0], ipq.shape[1]
+        res = torch.empty(m, n, device=codes.device)
+        head = [P(codes), P(q), P(qs), P(qc), P(sc), P(off), P(cl), P(ipq),
+                None, None]
+        out["k5"] = (lambda: lib.ash_coarse_launch(
+            *head, P(res), n, m, wd, C, b, 0, S()), res)
+        wn, wwd = wide[0].shape
+        wres = torch.empty(m, wn, device=codes.device)
+        whead = [P(x) for x in wide] + [None, None]
+        out["k5_wide"] = (lambda: lib.ash_coarse_launch(
+            *whead, P(wres), wn, m, wwd, wide[7].shape[1], 8, 0, S()), wres)
+        if not fused:
+            return out
+        n_spans, per, L = ref.span_geometry(n, 32, None, 2 * n_sm)
+        strip = torch.empty(m, n_spans * L, dtype=torch.int64,
+                            device=codes.device)
+        out["k6_scan"] = (lambda: lib.ash_coarse_topk_launch(
             *head, None, P(strip), n, m, wd, C, b, 0, L, per, n_spans,
             S()), strip)
     else:
@@ -292,30 +436,39 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", type=pathlib.Path,
                     help="another checkout's kernels/csrc directory, "
                          "built and timed as the variant 'parent'")
+    ap.add_argument("--source", action="append", choices=SOURCES,
+                    help="only the variants of this file (repeatable; "
+                         "default all three)")
     args = ap.parse_args(argv)
+    sources = args.source or SOURCES
     if not torch.cuda.is_available():
         print("probe: needs a CUDA card", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
     variants, spec = [], {}
     for label, source, consts, edits, compared, fused in VARIANTS:
+        if source not in sources:
+            continue
         if not fused:
             edits = (*edits, SCAN_ONLY[source])
         variants.append((label, _build.CSRC, source, consts, edits))
         spec[(label, source)] = (compared, fused)
     if args.parent is not None:
-        for source in ("ash_score", "ash_gather"):
-            variants.append(("parent", args.parent.resolve(), source, {}, ()))
+        for source in sources:
+            variants.append(("parent", args.parent.resolve(), source, {},
+                             ()))
             spec[("parent", source)] = (True, True)
     libs = build(variants)
-    flat, gath, rows = operands(dev)
+    flat, gath, rows, coarse = operands(dev)
+    wide = wide_coarse(dev) if "ash_coarse" in sources else None
     b = 2
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     runs = {}
     for (label, source), path in libs.items():
         compared, fused = spec[(label, source)]
         for kern, (fn, res) in calls(_load(path, source), source, fused,
-                                     flat, gath, rows, b, n_sm).items():
+                                     flat, gath, rows, coarse, wide, b,
+                                     n_sm).items():
             runs[(label, kern)] = (fn, res, compared)
     # every compared variant's output equal to the shipped kernel's
     want, equal = {}, {}
@@ -346,9 +499,13 @@ def main(argv=None) -> int:
             if m:
                 cur = m.group(1)
             m = re.search(r"Used (\d+) registers", ln)
-            if m and ("ash_score_kernelILi2ELi0E" in cur
-                      or "ash_gather_kernelILi2ELi0E" in cur):
+            # the main instances (kernel 5's of one chunk a row)
+            if m and re.search(r"(ash_score|ash_gather|coarse_rows)_kernel"
+                               r"ILi2ELi0E|ash_coarse_kernelILi2ELi0E"
+                               r"(Lb0E)?E", cur):
                 regs[f"{label}/{source}"] = int(m.group(1))
+            if m and "ash_coarse_topk_kernelILi2ELi0ELi1E" in cur:
+                regs[f"{label}/{source}/k6"] = int(m.group(1))
     result = dict(device=smi, torch=torch.__version__,
                   ms=times, equal_to_shipped=equal, registers=regs)
     out = ROOT / "chiprun_out"

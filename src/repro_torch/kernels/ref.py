@@ -76,19 +76,20 @@ def ash_score_metric_ref(
                         rowterm.to(torch.float32)[None, :], metric)
 
 
-def _gathered_dot(codes, safe, q, b: int) -> torch.Tensor:
-    """(m, R) rowwise sums sum_k q[i, k] * v[safe[i, t], k] over the
+def _gathered_dot(codes, safe, q, b: int,
+                  dtype=torch.float32) -> torch.Tensor:
+    """(m, R) fp32 rowwise sums sum_k q[i, k] * v[safe[i, t], k] over the
     unpacked code rows of a candidate table, GATHER_CHUNK positions at a
-    time (a broadcast multiply and last-axis sum: each row's value does
-    not depend on the batch)."""
+    time (a broadcast multiply and last-axis sum in ``dtype``: each
+    row's value does not depend on the batch)."""
     m, R = safe.shape
     d_pad = codes.shape[1] * Q.codes_per_word(b)
-    q = q.to(torch.float32)
+    q = q.to(dtype)
     out = torch.empty(m, R, dtype=torch.float32, device=q.device)
     for t0 in range(0, R, GATHER_CHUNK):
         sl = safe[:, t0:t0 + GATHER_CHUNK]
         V = Q.unpack_codes(codes[sl.reshape(-1)], d_pad, b).to(
-            torch.float32).reshape(m, sl.shape[1], d_pad)
+            dtype).reshape(m, sl.shape[1], d_pad)
         out[:, t0:t0 + GATHER_CHUNK] = (q[:, None, :] * V).sum(dim=-1)
     return out
 
@@ -148,6 +149,14 @@ def score_tolerance(A, bias, off, qterm, rowterm, base, metric, d_pad):
     return f * (2 * gamma * A + 16 * _U32 * mag) + 16 * _U32 * base.abs()
 
 
+def _coarse_dtype(b: int, d_pad: int) -> torch.dtype:
+    """The float type in which the coarse dot term's integer sums are
+    exact: fp32 while 127 * (2^b - 1) * d_pad, the largest, stays below
+    2^24; else fp64 (b = 8 rows of d_pad above 518 can pass 2^24)."""
+    return (torch.float32 if 127 * (2**b - 1) * d_pad < 2**24
+            else torch.float64)
+
+
 def _coarse_base(dot_int, q_scale, q_corr, scale, offset, bias):
     """Eq. 20 base of the coarse scan, in the coarse kernels' order:
     dotc = acc * q_scale; biasq = bias + q_corr; dotc * scale + biasq +
@@ -167,14 +176,15 @@ def ash_score_coarse_ref(
 ) -> torch.Tensor:
     """Symmetric int8 coarse scores (m, n), higher-is-better.
 
-    The dot term is an fp32 product of exact small integers whose
-    partial sums stay below 2^24, so it equals the kernels' int32
-    accumulation in any order; the epilogue is :func:`_coarse_base`
-    then the metric tail."""
+    The dot term is the exact integer sum_k q_int8 * v, rounded once to
+    fp32, as the kernels' int32 accumulation gives it in any order: a
+    product of the integers in :func:`_coarse_dtype`, where every sum is
+    exact; the epilogue is :func:`_coarse_base` then the metric tail."""
     full_fp32()
     d_pad = codes.shape[1] * Q.codes_per_word(b)
-    V = Q.unpack_codes(codes, d_pad, b).to(torch.float32)
-    dot = q_int8.to(torch.float32) @ V.T
+    dt = _coarse_dtype(b, d_pad)
+    V = Q.unpack_codes(codes, d_pad, b).to(dt)
+    dot = (q_int8.to(dt) @ V.T).to(torch.float32)
     bias = ip_q_landmarks.to(torch.float32)[:, cluster.long()]
     base = _coarse_base(dot, q_scale, q_corr, scale[None, :],
                         offset[None, :], bias)
@@ -190,9 +200,10 @@ def ash_score_coarse_gather_ref(
 ) -> torch.Tensor:
     """Coarse scores over per-query candidate rows (m, R), pad entries
     -inf: the gathered counterpart of :func:`ash_score_coarse_ref`,
-    unpacking only the gathered rows."""
+    unpacking only the gathered rows (the same exact integer dot term)."""
     safe = rows.clamp(min=0).long()
-    dot = _gathered_dot(codes, safe, q_int8, b)
+    dot = _gathered_dot(codes, safe, q_int8, b,
+                        _coarse_dtype(b, codes.shape[1] * Q.codes_per_word(b)))
     bias = ip_q_landmarks.to(torch.float32).gather(1, cluster.long()[safe])
     base = _coarse_base(dot, q_scale, q_corr, scale.to(torch.float32)[safe],
                         offset.to(torch.float32)[safe], bias)

@@ -378,12 +378,46 @@ def _coarse_args(seed, b, d, n, m, C, metric, device):
     return [a[0], qi, qs, qc, *a[2:]]
 
 
+# (b, d, n, m, C, view) of kernel 5: every bitrate; d_pad = wd * 32 / b
+# not a multiple of 32 (b = 2, d = 48; b = 4, d = 40; b = 8, d = 20 and
+# 52) and word counts that leave lanes partial or empty words; m across
+# one and three query chunks; n not a multiple of 16 or of a block's 256
+# rows; C = 1 and C = 2000 (above the shared-memory staging of ipq, read
+# from device memory); rows wider than a stage's 32 words, cut into
+# chunks (b = 8, d = 132: two, the last of one word; b = 4, d = 1000 and
+# b = 1, d = 4000: wd = 125, not a multiple of 4; b = 8, d = 2048 and
+# b = 4, d = 4096: 16); views: "offset" takes the codes from a base 4
+# bytes past 8-byte alignment (word loads, 4-byte copies), "zero_query"
+# zeroes one query's int8 values
+_COARSE_CASES = [
+    (1, 100, 3001, 3, 16, None), (2, 128, 5000, 8, 16, None),
+    (4, 72, 1500, 11, 16, None), (8, 20, 700, 1, 16, None),
+    (8, 128, 2000, 9, 16, None), (1, 33, 1025, 17, 1, "offset"),
+    (2, 48, 1001, 17, 16, "offset"), (2, 128, 4097, 9, 2000, "zero_query"),
+    (2, 100, 257, 1, 1, None), (4, 40, 513, 3, 2000, None),
+    (4, 128, 300, 9, 16, "offset"), (8, 52, 999, 17, 64, "zero_query"),
+    (8, 20, 17, 3, 1, "offset"), (1, 256, 4111, 8, 64, "zero_query"),
+    (8, 132, 999, 9, 1, None), (4, 1000, 333, 3, 2000, "zero_query"),
+    (1, 4000, 513, 8, 16, None), (8, 2048, 1500, 9, 64, None),
+    (4, 4096, 700, 17, 16, "offset"),
+]
+
+
 @pytest.mark.parametrize("metric", METRICS)
-@pytest.mark.parametrize("b,d,n,m", [(1, 100, 3001, 3), (2, 128, 5000, 8),
-                                     (4, 72, 1500, 11), (8, 20, 700, 1),
-                                     (8, 128, 2000, 9)])
-def test_coarse_kernel_equals_plain(cuda, metric, b, d, n, m):
-    args = _coarse_args(b * 3 + d, b, d, n, m, 16, metric, cuda)
+@pytest.mark.parametrize("b,d,n,m,C,view", _COARSE_CASES)
+def test_coarse_kernel_equals_plain(cuda, metric, b, d, n, m, C, view):
+    """Kernel 5 EQUAL to its plain version, one launch a call; and
+    kernel 6 on the same operands EQUAL to a stable top-k of it."""
+    args = _coarse_args(b * 3 + d + (C if C != 16 else 0), b, d, n, m, C,
+                        metric, cuda)
+    if view == "offset":
+        codes = args[0]
+        buf = torch.empty(codes.numel() + 1, dtype=torch.int32, device=cuda)
+        buf[1:] = codes.reshape(-1)
+        args[0] = buf[1:].view(codes.shape)
+        assert args[0].data_ptr() % 8 == 4
+    elif view == "zero_query":
+        args[1][m // 2] = 0
     before = TK.launch_counts["ash_score_coarse"]
     got = TK.ash_score_coarse_cuda(*args, b=b, metric=metric)
     torch.cuda.synchronize()
@@ -393,6 +427,25 @@ def test_coarse_kernel_equals_plain(cuda, metric, b, d, n, m):
     cpu = TK.ash_score_coarse_cuda(*[a if a is None else a.cpu()
                                      for a in args], b=b, metric=metric)
     torch.testing.assert_close(got.cpu(), cpu, rtol=0, atol=0)
+    k = min(n, 50)
+    ts, ti = TK.ash_score_coarse_topk_cuda(*args, b=b, k=k, metric=metric)
+    vs, vi = TR.stable_top_k(want, k)
+    assert torch.equal(ts, vs) and torch.equal(ti, vi.to(torch.int32))
+
+
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+@pytest.mark.parametrize("b,d", [(8, 28000), (4, 29056)])
+def test_coarse_kernel_wide_query_split(cuda, metric, b, d):
+    """Kernel 5 at d_pad where the B fragments of 8 queries do not fit in
+    shared memory beside a warp's ring (a block takes fewer queries):
+    EQUAL to its plain version, one launch a call."""
+    args = _coarse_args(b + d, b, d, 150, 9, 64, metric, cuda)
+    before = TK.launch_counts["ash_score_coarse"]
+    got = TK.ash_score_coarse_cuda(*args, b=b, metric=metric)
+    torch.cuda.synchronize()
+    assert TK.launch_counts["ash_score_coarse"] == before + 1
+    assert torch.equal(got, TR.ash_score_coarse_ref(*args, b=b,
+                                                    metric=metric))
 
 
 @pytest.mark.parametrize("metric", METRICS)
