@@ -17,7 +17,8 @@ for exact rerank.  Phases, one line each:
   3. train and encode on the card (``AshIndex.build``), train a second
      time from the same seed (the models must be bit-identical), encode
      one vector twice alone and once as a row of a 64-row batch (all
-     three bit-identical), and the IVF index over the same model and
+     three bit-identical; each of the 64 rows alone EQUAL to its batch
+     row), and the IVF index over the same model and
      payload (``AshIndex.from_parts``, nlist = 64);
   4. the dense kernels against their plain PyTorch versions on the same
      inputs (8 queries, the full index, metrics dot/l2/cos), and the
@@ -89,7 +90,37 @@ for exact rerank.  Phases, one line each:
      the noise floor of an fp32-sized jitter of the attention output;
      the plain route run free (reported); the ASH-KV cache against the
      bf16 cache (reported); ``prefill`` against the bf16-cache decode's
-     last step.
+     last step;
+  13. the serving engine (``repro_torch.serving``) over phase 3's flat
+     and IVF indexes (run before phases 9-12): 13a fresh prepares and
+     searches of rows alone and in 8 rows EQUAL to the same rows among
+     128, on every route of phases 5 and 5b and flat k=10 (and 32 rows
+     for the prep), and kernels 1-6 on fresh 32- and 128-row preps
+     against their plain versions as in phases 4 and 4b (the flat scan,
+     the coarse shortlists of 32 and 256 rows, the IVF candidates);
+     13b a ``ServingFrontend`` over one ``QueryEngine``
+     (buckets 8/32/128, k buckets 10/100, row budget 500,000) serving
+     32 client threads of 40 requests of 1-8 rows over nine routes
+     (13a's routes and IVF k=10, so that each of kernels 1-6 is
+     launched through the engine):
+     every ticket EQUAL to a direct ``AshIndex.search`` of its rows, no
+     failed ticket, a healthy frontend, fewer fused calls than
+     requests, and each route's scan launches equal to its fused
+     engine calls, one merge each under its scan's name (the kernels
+     line's launches add this stream's); 13c a flush at pressure 1.0
+     with ``nprobe_min=2`` EQUAL to direct search at nprobe 2; 13d 8
+     threads of searches, adds and deletes over a fresh flat index with
+     a ``BackgroundCompactor`` (at least one swap mid-stream): no ticket
+     lost or resolved twice, every search EQUAL to a serial replay of
+     the submission log on a twin index, and after compaction EQUAL to
+     ``from_parts`` over the survivors; 13e closed loops of 1, 8 and 32
+     client threads of 1-query k=10 requests, engine against direct
+     search from the same threads (QPS, p50/p99 over at least 1,000
+     timed requests after a warm-up, kernel launches per query, bucket
+     fill, prep-cache hits), a ``torch.profiler`` window over 20 engine
+     flushes at bucket 32 against as many direct requests (device busy
+     and operations a query, idle share), and the host ms of each
+     engine step in those flushes (a ``serving`` JSON line).
 
 Any failed check raises; the script exits 0 only when every phase
 passed.  The last line is ``{"ok": true, "device": {...}}``.  Detailed
@@ -748,6 +779,611 @@ def lm_phases(results, dev):
         library_call=f"{KV_SDPA} over pre-dequantized bf16 K and V")
 
 
+# -- the serving engine (phase 13) --------------------------------------
+# phase 3's flat and IVF indexes behind repro_torch.serving: one engine
+# for both, 32 client threads through a ServingFrontend, the degraded
+# nprobe rung, mutations with a background compactor, and closed-loop
+# numbers against direct search from the same client threads
+ENG_BUCKETS, ENG_K_BUCKETS = (8, 32, 128), (10, 100)
+ENG_ROW_BUDGET = 500_000  # about half the index: IVF groups split
+ENG_CLIENTS, ENG_REQUESTS = 32, 40  # 13b: threads, requests each
+MUT_THREADS, MUT_OPS, MUT_DELETE_IDS = 8, 40, 20_000  # 13d
+# 13e: at least 1,000 timed requests a loop, so that p99 has ten
+# samples beyond it
+LOOP_CLIENTS, LOOP_REQUESTS, LOOP_MIN = (1, 8, 32), 1000, 40
+PROF_FLUSHES, PROF_BUCKET = 20, 32  # 13e profile window
+
+
+def _same(got, want):
+    """(scores, ids) of a ticket (host tensors) EQUAL to a direct search
+    (device tensors)."""
+    import torch
+
+    return bool(torch.equal(got[0], want[0].cpu())
+                and torch.equal(got[1], want[1].cpu()))
+
+
+def _run_threads(n, target, timeout=300.0):
+    """Start ``n`` threads of ``target(i)`` together; join them all and
+    fail if one is still running after ``timeout`` seconds."""
+    import threading
+
+    threads = [threading.Thread(target=target, args=(i,), daemon=True)
+               for i in range(n)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(max(0.0, timeout - (time.perf_counter() - t0)))
+    check(not any(t.is_alive() for t in threads),
+          f"client threads still running after {timeout} s")
+    return time.perf_counter() - t0
+
+
+def _closed_loop(clients, per_client, request, n_q):
+    """``clients`` threads, each issuing ``per_client`` requests back to
+    back (``request(i)`` for query row i): QPS and host-clock p50/p99,
+    after one untimed request from every client at once (the first
+    flush of a bucket shape grows the allocator).  Launch counts are
+    zeroed after that warm-up."""
+    import torch
+
+    from repro_torch.kernels import ash_score as TK
+
+    lat = [[] for _ in range(clients)]
+    errors = []
+    _run_threads(clients, lambda c: request((n_q - 1 - c) % n_q))
+    torch.cuda.synchronize()
+    TK.reset_launch_counts()
+
+    def client(c):
+        try:
+            for j in range(per_client):
+                i = (c * per_client + j) % n_q
+                t0 = time.perf_counter()
+                request(i)
+                lat[c].append(time.perf_counter() - t0)
+        except Exception as e:  # recorded, then failed below
+            errors.append(repr(e))
+
+    wall = _run_threads(clients, client)
+    check(not errors, f"closed-loop client failed: {errors[:2]}")
+    flat = [x for c in lat for x in c]
+    return dict(clients=clients, requests=len(flat), wall_s=wall,
+                qps=len(flat) / wall, p50_ms=pct(flat, 50) * 1e3,
+                p99_ms=pct(flat, 99) * 1e3)
+
+
+def _timed(obj, name, acc):
+    """Wrap ``obj.name`` (as an instance attribute) to add its seconds
+    to ``acc[name]``; ``del obj.name`` restores a method."""
+    inner = getattr(obj, name)
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return inner(*a, **kw)
+        finally:
+            acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
+
+    setattr(obj, name, timed)
+
+
+def _profile(run, n_queries):
+    """torch.profiler around ``run()``: wall and device-busy ms per
+    query, device operations per query, and the device's idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    return dict(queries=n_queries, wall_ms_per_query=wall_ms / n_queries,
+                device_busy_ms_per_query=busy_ms / n_queries,
+                device_ops_per_query=sum(e.count for e in dev) / n_queries,
+                device_idle_share=(1 - busy_ms / wall_ms) if busy_ms
+                else None)
+
+
+def kernels_at_rows(index, ivf, queries, m):
+    """Kernels 1-6 on a fresh ``prepare`` of ``m`` rows, held against
+    their plain versions as phases 4 and 4b hold them at 8 rows: kernels
+    1 and 3 within ``ref.score_tolerance``; kernels 2 and 4 EQUAL to the
+    stable top-k of kernels 1 and 3, and against their plain selections
+    with scores within the row's bound and ids equal wherever the score
+    gap exceeds it; kernels 5 and 6 EQUAL to the plain coarse scan and
+    its stable top-k.  The engine's buckets run the kernels at 32 and
+    128 rows, on the operands of its routes: the flat scan (k = 10 and
+    k = 100), the IVF candidate table at nprobe = NPROBE, and the flat
+    coarse shortlists of L = 32 (refined by kernel 4) and L = RERANK
+    (refined by kernel 3).  Returns the largest |kernel - plain| over
+    bound of kernels 1-4 and the equalities, by kernel name."""
+    import torch
+
+    from repro_torch.core import quantization as Q
+    from repro_torch.index import ivf as IV
+    from repro_torch.kernels import ash_score as TK
+    from repro_torch.kernels import ops, ref
+
+    metric = "dot"  # the metric of phase 3's indexes
+    model = index.model
+    out = {"ash_score": 0.0, "ash_score_topk": 0.0,
+           "ash_score_gather": 0.0, "ash_score_gather_topk": 0.0}
+    exact = {}
+
+    def dense(idx, pl, stats):
+        """Operands, plain dense scores and their elementwise bound."""
+        prep = idx.prepare(queries[:m])
+        args = ops._score_args(prep, pl)
+        codes, qp, scale, offset, cluster, ipq = args
+        qterm, rowterm = ops._metric_operands(model, prep, pl, stats,
+                                              metric)
+        want = ref.ash_score_metric_ref(*args, qterm, rowterm, b=pl.b,
+                                        metric=metric)
+        d_pad = pl.codes.shape[1] * Q.codes_per_word(pl.b)
+        V_abs = Q.unpack_codes(pl.codes, d_pad, pl.b).float().abs()
+        Amat = (qp.abs() @ V_abs.T) * scale.abs()[None, :]
+        del V_abs
+        tol = ref.score_tolerance(Amat, ipq[:, cluster.long()], offset,
+                                  qterm, rowterm, want, metric, d_pad)
+        return prep, args, qterm, rowterm, want, tol
+
+    def ratio(name, got, want, tol):
+        r = float(((got - want).abs() / tol).max())
+        out[name] = max(out[name], r)
+        check(r <= 1.0, f"m = {m}: |{name} - plain| above bound "
+                        f"(max ratio {r})")
+
+    def selection(name, ts, tr, ps, pr, want, row_tol):
+        """scores within the row's bound; ids equal wherever the dense
+        plain scores of the two ids differ by more than twice it"""
+        differ = tr != pr
+        gap = (want.gather(1, tr.clamp(min=0).long())
+               - want.gather(1, pr.clamp(min=0).long())).abs()
+        fin = torch.isfinite(ps)
+        err = torch.where(fin, (ts - ps).abs(), 0.0)
+        r = float((err / row_tol).max())
+        out[name] = max(out[name], r)
+        check(bool((gap[differ] <= 2 * row_tol.expand_as(gap)[differ])
+                   .all()) and r <= 1.0 and torch.equal(fin,
+                                                        torch.isfinite(ts)),
+              f"m = {m}: {name} != its plain selection beyond the bound")
+
+    def gathered(cand, args, qterm, rowterm, want, tol, ks):
+        """kernels 3 and 4 over one candidate table"""
+        codes, rest = args[0], args[1:]
+        b = index.payload.b
+        live = cand >= 0
+        safe = cand.clamp(min=0).long()
+        g = TK.ash_score_gather_cuda(codes, cand, *rest, qterm, rowterm,
+                                     b=b, metric=metric)
+        gp = ref.ash_score_gather_ref(codes, cand, *rest, qterm, rowterm,
+                                      b=b, metric=metric)
+        tol_g = tol.gather(1, safe)
+        ratio("ash_score_gather", g[live], gp[live], tol_g[live])
+        check(bool(torch.isneginf(g[~live]).all()),
+              f"m = {m}: kernel 3 pad ids not -inf")
+        row_tol = torch.where(live, tol_g, 0.0).max(dim=1,
+                                                    keepdim=True).values
+        for k in ks:
+            ts, tr = TK.ash_score_gather_topk_cuda(
+                codes, cand, *rest, qterm, rowterm, b=b, k=k,
+                metric=metric)
+            vs, vp = ref.stable_top_k(g, k)
+            exact[f"ash_score_gather_topk/R{cand.shape[1]}/k{k}"] = bool(
+                torch.equal(ts, vs) and torch.equal(tr, cand.gather(1, vp)))
+            ps, pp = ref.stable_top_k(gp, k)
+            selection("ash_score_gather_topk", ts, tr, ps,
+                      cand.gather(1, pp), want, row_tol)
+
+    # the flat scan: kernels 1 and 2
+    pl = index.payload
+    prep, args, qterm, rowterm, want, tol = dense(index, pl, index.stats)
+    got = TK.ash_score_cuda(*args, qterm, rowterm, b=pl.b, metric=metric)
+    ratio("ash_score", got, want, tol)
+    row_tol = tol.max(dim=1, keepdim=True).values
+    for k in (10, K):
+        ts, ti = TK.ash_score_topk_cuda(*args, qterm, rowterm, b=pl.b,
+                                        k=k, metric=metric)
+        vs, vi = ref.stable_top_k(got, k)
+        exact[f"ash_score_topk/k{k}"] = bool(
+            torch.equal(ts, vs) and torch.equal(ti, vi.to(torch.int32)))
+        ps, pi = ref.ash_score_topk_ref(*args, qterm, rowterm, None,
+                                        b=pl.b, k=k, metric=metric)
+        selection("ash_score_topk", ts, ti, ps, pi, want, row_tol)
+    del got
+    # the flat coarse scan: kernels 5 and 6, then its two shortlists
+    cprep = ops._coarse_prep(prep, pl, index._state.coarse, None)
+    cargs = ops._coarse_score_args(prep, cprep, pl)
+    c = TK.ash_score_coarse_cuda(*cargs, qterm, rowterm, b=pl.b,
+                                 metric=metric)
+    cp = ref.ash_score_coarse_ref(*cargs, qterm, rowterm, b=pl.b,
+                                  metric=metric)
+    exact["ash_score_coarse"] = bool(torch.equal(c, cp))
+    L = ops.DEFAULT_SHORTLIST
+    fs, fi = TK.ash_score_coarse_topk_cuda(*cargs, qterm, rowterm, None,
+                                           None, b=pl.b, k=L, metric=metric)
+    vs, vi = ref.stable_top_k(cp, L)
+    exact[f"ash_score_coarse_topk/k{L}"] = bool(
+        torch.equal(fs, vs) and torch.equal(fi, vi.to(torch.int32)))
+    _, deep = ref.stable_top_k(cp, RERANK)
+    del c, cp
+    for short, ks in ((fi, (10,)), (deep.to(torch.int32), ())):
+        gathered(ops.sort_candidate_rows(short), args, qterm, rowterm,
+                 want, tol, ks)
+    del want, tol
+    # the IVF candidate table: kernels 3 and 4
+    st = ivf._state
+    prep, args, qterm, rowterm, want, tol = dense(ivf, st.payload,
+                                                  st.stats)
+    cand = IV.candidate_rows(st, IV._probe_lists(st, prep, NPROBE))
+    gathered(cand, args, qterm, rowterm, want, tol, (10, K))
+    del want, tol
+    check(all(exact.values()), f"m = {m}: kernels != their plain "
+                               f"versions: {exact}")
+    return dict(max_err_over_bound=out, equal=exact)
+
+
+def serving_phases(results, index, ivf, queries):
+    """Phase 13 (13a-13e); returns the kernel launches and merges of
+    13b's engine stream, by kernel name."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.index import AshIndex
+    from repro_torch.kernels import ash_score as TK
+    from repro_torch.serving import (
+        BackgroundCompactor, EngineConfig, QueryEngine, ServingFrontend,
+    )
+
+    t_phase = time.perf_counter()
+    qh = queries.cpu().numpy()  # clients hold their rows on the host
+    n_q = qh.shape[0]
+    out = {}
+
+    # -- 13a. row invariance on the card: fresh prepares and searches of
+    # rows alone, in 8 and 32 rows, against the same rows among 128
+    routes = (
+        ("flat_k100", index, dict(k=K)),
+        ("flat_k10", index, dict(k=10)),
+        ("flat_k10_rerank256", index, dict(k=10, rerank=RERANK)),
+        ("ivf_k100", ivf, dict(k=K, nprobe=NPROBE)),
+        ("ivf_k10_rerank256", ivf, dict(k=10, nprobe=NPROBE,
+                                        rerank=RERANK)),
+        ("flat_coarse_k10", index, dict(k=10, coarse="int8")),
+        ("flat_coarse_k10_rerank256", index,
+         dict(k=10, coarse="int8", rerank=RERANK)),
+        ("ivf_coarse_k10", ivf, dict(k=10, nprobe=NPROBE, coarse="int8")),
+    )
+    q128 = queries[:128]
+    parts = ((3, 1), (100, 1), (5, 8), (40, 32))  # (offset, rows)
+    prep128 = index.prepare(q128)
+    prep_same = all(
+        torch.equal(getattr(index.prepare(q128[o:o + m]), f),
+                    getattr(prep128, f)[o:o + m])
+        for o, m in parts
+        for f in ("q", "q_proj", "ip_q_landmarks", "q_sq_norm"))
+    search_same = {}
+    for name, idx, kw in routes:
+        sb, ib = idx.search(q128, **kw)
+        search_same[name] = all(
+            torch.equal(s, sb[o:o + m]) and torch.equal(i, ib[o:o + m])
+            for o, m in parts[:3]
+            for s, i in [idx.search(q128[o:o + m], **kw)])
+    # the engine's buckets run kernels 1-6 at 32 and 128 rows: each
+    # against its plain version there, as phases 4 and 4b at 8 rows
+    plain = {f"m{m}": kernels_at_rows(index, ivf, queries, m)
+             for m in ENG_BUCKETS[1:]}
+    out["13a_row_invariance"] = dict(prepare=prep_same, search=search_same,
+                                     kernels_vs_plain=plain)
+    check(prep_same, "prepare: rows alone != the same rows in a batch")
+    check(all(search_same.values()),
+          f"search: rows alone != the same rows in a batch: {search_same}")
+    log("engine_row_invariance", **out["13a_row_invariance"])
+
+    # -- 13b. engine parity under 32 concurrent clients ------------------
+    mix = (
+        ("flat", dict(k=10)), ("flat", dict(k=K)),
+        ("flat", dict(k=10, rerank=RERANK)),
+        ("flat", dict(k=10, coarse="int8")),
+        ("flat", dict(k=10, coarse="int8", rerank=RERANK)),
+        ("ivf", dict(k=10, nprobe=NPROBE)), ("ivf", dict(k=K, nprobe=NPROBE)),
+        ("ivf", dict(k=10, nprobe=NPROBE, rerank=RERANK)),
+        ("ivf", dict(k=10, nprobe=NPROBE, coarse="int8")),
+    )
+    indexes = {"flat": index, "ivf": ivf}
+    eng = QueryEngine(indexes, EngineConfig(
+        batch_buckets=ENG_BUCKETS, k_buckets=ENG_K_BUCKETS,
+        row_budget=ENG_ROW_BUDGET))
+    # the engine's fused calls, by (index, rerank, coarse): what each
+    # route's kernel launches are held to
+    calls, calls_lock = {}, threading.Lock()
+
+    def counted(name, inner):
+        def search_prepped(prep, **kw):
+            key = (name, bool(kw.get("rerank")), kw.get("coarse"))
+            with calls_lock:
+                calls[key] = calls.get(key, 0) + 1
+            return inner(prep, **kw)
+        return search_prepped
+
+    for name, idx in indexes.items():
+        idx.search_prepped = counted(name, idx.search_prepped)
+    log_b = [[] for _ in range(ENG_CLIENTS)]
+    errors = []
+    go = threading.Barrier(ENG_CLIENTS)
+
+    def client(c):
+        rng = np.random.RandomState(1300 + c)
+        try:
+            go.wait()
+            for _ in range(ENG_REQUESTS):
+                name, kw = mix[rng.randint(len(mix))]
+                m = rng.randint(1, 9)
+                o = rng.randint(0, n_q - m)
+                t = fe.submit(qh[o:o + m], index=name, **kw)
+                t.result(timeout=120.0)
+                log_b[c].append((name, kw, o, m, t))
+        except Exception as e:  # recorded, then failed below
+            errors.append(repr(e))
+
+    torch.cuda.synchronize()
+    TK.reset_launch_counts()
+    try:
+        with ServingFrontend(eng) as fe:
+            wall = _run_threads(ENG_CLIENTS, client)
+            healthy = fe.healthy()
+        torch.cuda.synchronize()
+        launches = dict(TK.launch_counts)
+        merges = dict(TK.merge_launches)
+    finally:
+        for idx in indexes.values():
+            del idx.search_prepped  # back to the class's method
+    snap = eng.stats.snapshot()
+    tickets = [e for c in log_b for e in c]
+    check(not errors, f"13b clients failed: {errors[:3]}")
+    failed = sum(t.error is not None for *_, t in tickets)
+    mismatched = [
+        (name, kw, m) for name, kw, o, m, t in tickets
+        if not _same(t.result(), indexes[name].search(queries[o:o + m],
+                                                      **kw))]
+    def n(name, rerank, coarse=None):
+        return calls.get((name, rerank, coarse), 0)
+
+    # each route's scan launches equal its fused engine calls, and each
+    # fused scan launches one merge, counted under its own name.  A
+    # shortlist of RERANK rows is above the fused selections' cap: the
+    # rerank routes materialize (kernels 1 and 3, and kernel 5 for the
+    # coarse pass of L = RERANK) and sort
+    want = {"ash_score_topk": n("flat", False),
+            "ash_score": n("flat", True),
+            "ash_score_coarse_topk": n("flat", False, "int8"),
+            "ash_score_coarse": n("flat", True, "int8"),
+            "ash_score_gather_topk": (n("ivf", False) + n("ivf", False, "int8")
+                                      + n("flat", False, "int8")),
+            "ash_score_gather": n("ivf", True) + n("flat", True, "int8")}
+    check(all(v > 0 for v in want.values()),
+          f"13b: a kernel no fused engine call reaches: {want}")
+    launches_ok = (all(launches[k] == v for k, v in want.items())
+                   and all(merges[k] == launches[k] for k in merges)
+                   and launches["ash_topk_merge"] == sum(merges.values()))
+    out["13b_engine_parity"] = dict(
+        clients=ENG_CLIENTS, requests=len(tickets),
+        query_rows=sum(t.n_rows for *_, t in tickets), wall_s=wall,
+        failed=failed, mismatched=len(mismatched), healthy=healthy,
+        fused_calls={"/".join(map(str, k)): v for k, v in calls.items()},
+        launches=launches, merges=merges, launches_equal_calls=launches_ok,
+        stats={k: snap[k] for k in ("requests", "batches", "rows",
+                                    "bucket_fill", "prep_hit_rate",
+                                    "flushes", "ivf_cost",
+                                    "unique_buckets")})
+    log("engine_parity", **out["13b_engine_parity"])
+    check(failed == 0 and healthy, f"13b: {failed} tickets failed, "
+          f"frontend healthy={healthy}")
+    check(not mismatched, f"13b: engine != direct search for "
+          f"{len(mismatched)} tickets, e.g. {mismatched[:3]}")
+    check(snap["batches"] < snap["requests"],
+          f"13b: {snap['batches']} fused calls for {snap['requests']} "
+          "requests")
+    check(launches_ok, f"13b: launches {launches}, merges {merges}, "
+          f"fused engine calls {calls}")
+
+    # -- 13c. the degraded rung: pressure 1.0 lands on nprobe_min = 2 ----
+    eng_c = QueryEngine(ivf, batch_buckets=ENG_BUCKETS,
+                        k_buckets=ENG_K_BUCKETS, max_wait_s=60.0,
+                        nprobe_min=2)
+    tix = [eng_c.submit(qh[i:i + 1], k=10, nprobe=NPROBE)
+           for i in range(16)]
+    eng_c._flush_all("manual", pressure=1.0)
+    rung_same = all(
+        _same(t.result(), ivf.search(queries[i:i + 1], k=10, nprobe=2))
+        for i, t in enumerate(tix))
+    rung = sorted({t.stats.effective_nprobe for t in tix})
+    out["13c_degraded_rung"] = dict(equal_to_direct_nprobe2=rung_same,
+                                    effective_nprobe=rung)
+    log("engine_degraded_rung", **out["13c_degraded_rung"])
+    check(rung_same and rung == [2],
+          f"13c: degraded flush {out['13c_degraded_rung']}")
+
+    # -- 13d. mutations behind the frontend, a compactor swapping -------
+    model, payload, raw = index.model, index.payload, index._state.raw
+    live = AshIndex.from_parts(model, payload, raw=raw)
+    twin = AshIndex.from_parts(model, payload, raw=raw)
+    eng_m = QueryEngine(live, batch_buckets=ENG_BUCKETS,
+                        k_buckets=ENG_K_BUCKETS, auto_compact=0.05)
+    comp = BackgroundCompactor(eng_m, max_retries=10).start()
+    log_d, resolutions, errors = [], [], []
+    log_lock = threading.Lock()
+
+    def worker(w):
+        rng = np.random.RandomState(1400 + w)
+        try:
+            for i in range(MUT_OPS):
+                if i % 20 == 3:  # 5 % adds of held-out rows
+                    rows = qh[rng.randint(0, n_q, 4)]
+                    with log_lock:
+                        t = fe.submit_add(rows)
+                        log_d.append(("add", rows, t))
+                elif i % 20 == 13:  # 5 % deletes
+                    with log_lock:
+                        victims = rng.randint(0, live.next_id,
+                                              MUT_DELETE_IDS)
+                        t = fe.submit_delete(victims)
+                        log_d.append(("del", victims, t))
+                else:  # 90 % searches
+                    m = rng.randint(1, 9)
+                    o = rng.randint(0, n_q - m)
+                    with log_lock:
+                        t = fe.submit(qh[o:o + m], k=10)
+                        log_d.append(("search", (o, m), t))
+                t.add_done_callback(resolutions.append)
+                t.result(timeout=120.0)
+        except Exception as e:  # recorded, then failed below
+            errors.append(repr(e))
+
+    try:
+        with ServingFrontend(eng_m) as fe:
+            wall_d = _run_threads(MUT_THREADS, worker)
+            swaps_mid = eng_m.stats.compact_runs
+        comp.wait_idle(60.0)
+    finally:
+        comp.stop()
+    check(not errors, f"13d workers failed: {errors[:3]}")
+    lost = sum(not t.done for *_, t in log_d)
+    twice = len(resolutions) - len(set(map(id, resolutions)))
+    replay_bad = 0
+    for kind, arg, t in log_d:  # the serial replay on the twin
+        if kind == "add":
+            twin.add(torch.from_numpy(arg))
+        elif kind == "del":
+            twin.delete(arg)
+        else:
+            o, m = arg
+            replay_bad += not _same(t.result(), twin.search(
+                queries[o:o + m], k=10))
+    live.compact()
+    twin.compact()
+    fresh = AshIndex.from_parts(model, twin.payload, raw=twin._state.raw)
+    s_l, i_l = live.search(q128, k=10)
+    s_f, i_f = fresh.search(q128, k=10)
+    fresh_same = bool(live.n == twin.n and torch.equal(s_l, s_f)
+                      and torch.equal(i_l, torch.where(
+                          i_f < 0, -1, twin._state.ids[i_f.clamp(min=0)
+                                                       .long()])))
+    snap_m = eng_m.stats.snapshot()
+    out["13d_mutations"] = dict(
+        threads=MUT_THREADS, submissions=len(log_d),
+        adds=sum(e[0] == "add" for e in log_d),
+        deletes=sum(e[0] == "del" for e in log_d), wall_s=wall_d,
+        lost=lost, resolved_twice=twice,
+        resolutions=len(resolutions), swaps_mid_stream=swaps_mid,
+        compaction=snap_m["compaction"], replay_mismatched=replay_bad,
+        n_after=live.n, equals_fresh_from_parts=fresh_same)
+    log("engine_mutations", **out["13d_mutations"])
+    check(lost == 0 and twice == 0 and len(resolutions) == len(log_d),
+          f"13d: {lost} tickets lost, {twice} resolved twice")
+    check(swaps_mid >= 1, "13d: no compactor swap during the stream")
+    check(replay_bad == 0,
+          f"13d: {replay_bad} searches != the serial replay")
+    check(fresh_same, "13d: compacted index != from_parts over survivors")
+    del live, twin, fresh, eng_m
+
+    # -- 13e. closed loop: engine against direct search, same clients ---
+    loops = {}
+    for name, idx, kw in (("flat", index, {}),
+                          ("ivf", ivf, dict(nprobe=NPROBE))):
+        for C in LOOP_CLIENTS:
+            per = max(LOOP_REQUESTS // C, LOOP_MIN)
+            e = QueryEngine(idx, batch_buckets=ENG_BUCKETS,
+                            k_buckets=ENG_K_BUCKETS)
+            with ServingFrontend(e) as fe:
+                row = dict(engine=_closed_loop(
+                    C, per, lambda i: fe.search(qh[i:i + 1], k=10,
+                                                timeout=120.0, **kw), n_q))
+            s = e.stats.snapshot()  # the warm-up included: C rows
+            row["engine"].update(
+                kernel_launches_per_query=sum(
+                    TK.launch_counts.values()) / row["engine"]["requests"],
+                fused_calls=s["batches"], bucket_fill=s["bucket_fill"],
+                prep_hit_rate=s["prep_hit_rate"], flushes={
+                    r: v for r, v in s["flushes"].items() if v})
+            row["direct"] = _closed_loop(
+                C, per, lambda i: [t.cpu() for t in idx.search(
+                    queries[i:i + 1], k=10, **kw)], n_q)
+            row["direct"]["kernel_launches_per_query"] = sum(
+                TK.launch_counts.values()) / row["direct"]["requests"]
+            loops[f"{name}_C{C}"] = row
+            log("engine_closed_loop", cell=f"{name}_C{C}", **row)
+    # where an engine flush's time goes: PROF_FLUSHES fused calls of
+    # PROF_BUCKET single-row requests each, against as many single-row
+    # direct requests
+    profiles = {}
+    for name, idx, kw in (("flat", index, {}),
+                          ("ivf", ivf, dict(nprobe=NPROBE))):
+        e = QueryEngine(idx, batch_buckets=ENG_BUCKETS,
+                        k_buckets=ENG_K_BUCKETS, max_wait_s=60.0)
+        n_p = PROF_FLUSHES * PROF_BUCKET
+
+        def flushes():
+            for f in range(PROF_FLUSHES):
+                for i in range(f * PROF_BUCKET, (f + 1) * PROF_BUCKET):
+                    e.submit(qh[i % n_q:i % n_q + 1], k=10, **kw)
+                e.flush()
+
+        def direct():
+            for i in range(n_p):
+                [t.cpu() for t in idx.search(queries[i % n_q:i % n_q + 1],
+                                             k=10, **kw)]
+
+        profiles[name] = dict(engine=_profile(flushes, n_p),
+                              direct=_profile(direct, n_p))
+        profiles[name]["engine"]["bucket_fill"] = e.stats.snapshot()[
+            "bucket_fill"]
+        # the same flushes on a fresh engine (a cold prep cache again),
+        # without the profiler: host ms a flush in each engine step
+        e = QueryEngine(idx, batch_buckets=ENG_BUCKETS,
+                        k_buckets=ENG_K_BUCKETS, max_wait_s=60.0)
+        acc = {}
+        for step in ("submit", "_prep_for", "_run_batch"):
+            _timed(e, step, acc)
+        _timed(idx, "search_prepped", acc)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            flushes()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            del idx.search_prepped
+        ms = {k: v * 1e3 / PROF_FLUSHES for k, v in acc.items()}
+        profiles[name]["engine_host_ms_per_flush"] = dict(
+            wall=wall * 1e3 / PROF_FLUSHES,
+            submits=ms["submit"], prep=ms["_prep_for"],
+            search_enqueue=ms["search_prepped"],
+            # the wait for the card, the copies and the scatter
+            copy_and_resolve=(ms["_run_batch"] - ms["_prep_for"]
+                              - ms["search_prepped"]))
+    out["13e_closed_loop"] = loops
+    out["13e_profile"] = profiles
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    results["serving"] = out
+    log("serving", closed_loop=loops, profile=profiles,
+        phase_seconds=out["phase_seconds"])
+    del eng, eng_c
+    torch.cuda.empty_cache()
+    return launches, merges
+
+
 def main() -> int:
     import torch
 
@@ -851,8 +1487,8 @@ def main() -> int:
     check(payload.codes.shape == (N, 8) and payload.codes.is_cuda,
           "payload shape/device")
     # one vector encodes alike twice alone and as a row of a 64-row batch
-    # (quant_exact's scans over a single row); the other 63 rows alone
-    # against the batch are counted, not gated
+    # (quant_exact's scans over a single row), and so does each of the
+    # other 63 (encode's products run over fixed-shape row blocks)
     batch = A.encode(model, X[:64])
 
     def row_of(p, i):
@@ -868,6 +1504,8 @@ def main() -> int:
     check(single_same, "one vector encodes differently alone and in a batch")
     rows_alone_equal = sum(same_row(p, 0, batch, i)
                            for i, p in enumerate(alone))
+    check(rows_alone_equal == 64, f"{64 - rows_alone_equal} of 64 rows "
+                                  "encode differently alone")
     del batch, alone
     results["build_index"] = dict(
         data_s=t_data, train_s=t_train, encode_s=t_encode,
@@ -1491,6 +2129,16 @@ def main() -> int:
                                 ivf_load_s=t_load_ivf,
                                 ivf_bit_identical=same_ivf)
     log("save_load", **results["save_load"])
+
+    # -- 13. the serving engine --------------------------------------------
+    # each kernel's launches: its phase 5/5b count plus 13b's engine
+    # stream (launched once per fused engine call, not per request)
+    eng_launches, eng_merges = serving_phases(results, index, ivf, queries)
+    for row in rows:
+        row["engine_launches"] = eng_launches[row["name"]]
+        row["launches"] += eng_launches[row["name"]]
+        if "merge_launches" in row:
+            row["merge_launches"] += eng_merges[row["name"]]
 
     rows.append(lm_phases(results, dev))
     results["kernels"] = rows

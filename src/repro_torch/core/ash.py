@@ -16,13 +16,17 @@ import torch
 from repro_torch.core import learning as L
 from repro_torch.core import quantization as Q
 from repro_torch.core.types import ASHConfig, ASHModel, ASHPayload
-from repro_torch.device import full_fp32, resolve_device
+from repro_torch.device import full_fp32, resolve_device, row_blocked
 
 _EPS = 1e-12
 _FP16_MAX = float(torch.finfo(torch.float16).max)
 # Breakpoint-sweep elements per encode chunk: bounds quant_exact's
 # (rows x d x (2^(b-1)-1)) working set to ~1 GB at any corpus size.
 _ENCODE_CHUNK_ELEMS = 2**24
+# Rows per block of encode's products (row_blocked): one size for every
+# encode, large enough that a corpus takes few launches; a single added
+# vector pays one 1024-row product.
+_ENCODE_BLOCK = 1024
 
 
 def _sample_rows(gen: torch.Generator, n: int, k: int, device):
@@ -123,8 +127,17 @@ def random_model(
 
 def _encode_rows(model: ASHModel, X32: torch.Tensor, exact: bool):
     cfg = model.config
-    x_tilde, res_norm, assign = L.normalized_residuals(X32, model.landmarks)
-    V = Q.quant(x_tilde @ model.W.T, cfg.b, exact=exact)
+    W_T = model.W.T
+
+    def project(x):  # the landmark assignment and the projection
+        x_tilde, res_norm, assign = L.normalized_residuals(
+            x, model.landmarks)
+        return x_tilde @ W_T, res_norm, assign
+
+    # over fixed-shape row blocks (row_blocked): a row encodes alike
+    # however many rows are encoded with it
+    U, res_norm, assign = row_blocked(project, X32, block=_ENCODE_BLOCK)
+    V = Q.quant(U, cfg.b, exact=exact)
     vnorm = torch.clamp(Q.code_norms(V), min=_EPS)
     scale = res_norm / vnorm
     cl = assign.long()

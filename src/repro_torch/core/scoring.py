@@ -13,22 +13,23 @@ from repro_torch.core import quantization as Q
 from repro_torch.core.types import (
     ASHModel, ASHPayload, ASHStats, CoarseCodes, CoarseQueryPrep, QueryPrep,
 )
-from repro_torch.device import full_fp32
+from repro_torch.device import full_fp32, row_blocked
 
 _EPS = 1e-12
 
 
 def prepare_queries(model: ASHModel, q: torch.Tensor) -> QueryPrep:
     """One-time per-query work: q_breve = W q, <q, mu_c>, ||q||^2.
-    ``q`` moves to the model's device."""
+    ``q`` moves to the model's device.  Each row's terms are bit-equal
+    however many rows are prepared with it (:func:`row_blocked`), so
+    rows prepared apart and stacked equal rows prepared together."""
     full_fp32()
     q32 = q.to(device=model.device, dtype=torch.float32)
-    return QueryPrep(
-        q=q32,
-        q_proj=q32 @ model.W.T,
-        ip_q_landmarks=q32 @ model.landmarks.T,
-        q_sq_norm=(q32 * q32).sum(dim=-1),
-    )
+    W_T, lm_T = model.W.T, model.landmarks.T
+    q_proj, ipl, q_sq = row_blocked(
+        lambda x: (x @ W_T, x @ lm_T, (x * x).sum(dim=-1)), q32)
+    return QueryPrep(q=q32, q_proj=q_proj, ip_q_landmarks=ipl,
+                     q_sq_norm=q_sq)
 
 
 def _unpacked(payload: ASHPayload) -> torch.Tensor:
@@ -117,10 +118,11 @@ def prepare_coarse_queries(prep: QueryPrep, mean: torch.Tensor
     qi = torch.clamp(torch.round(qp / s[..., None]), -COARSE_QMAX,
                      COARSE_QMAX)
     resid = qp - s[..., None] * qi
+    mean = mean.to(torch.float32)[: qp.shape[-1]]
     return CoarseQueryPrep(
         q_int8=qi.to(torch.int8),
         q_scale=s,
-        q_corr=resid @ mean.to(torch.float32)[: qp.shape[-1]],
+        q_corr=row_blocked(lambda r: r @ mean, resid),
     )
 
 
@@ -142,7 +144,8 @@ def _score_dot_from_V(prep, payload, V, rowwise):
     if rowwise:
         dot = (prep.q_proj[:, None, :] * V[None, :, :]).sum(dim=-1)
     else:
-        dot = prep.q_proj @ V.T
+        V_T = V.T
+        dot = row_blocked(lambda q: q @ V_T, prep.q_proj)
     scale = payload.scale.to(torch.float32)[None, :]
     offset = payload.offset.to(torch.float32)[None, :]
     query_compute = prep.ip_q_landmarks[:, payload.cluster.long()]

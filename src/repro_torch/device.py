@@ -29,3 +29,41 @@ def full_fp32() -> None:
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+ROW_BLOCK = 32  # rows per product of :func:`row_blocked`
+
+
+def row_blocked(fn, *rows: torch.Tensor, block: int = ROW_BLOCK):
+    """``fn(*rows)`` computed ``block`` rows at a time, so that each
+    row's result does not depend on how many rows come with it.
+
+    A matrix product or row reduction over m rows may take another
+    kernel, and another summation order, for each m (a GEMV at m = 1,
+    other blockings at m = 8 and 128, on the CPU and in cuBLAS alike).
+    Here every call of ``fn`` sees the same row count: full blocks are
+    contiguous slices of the operands, the last partial block alone is
+    zero-padded to ``block`` rows, ``fn`` runs once per block (one call
+    each, never one batched call: the kernel choice may follow the
+    batch count too), and the pad rows are sliced off.  A caller keeps
+    one block size for one computation.  ``fn`` returns a tensor or a
+    tuple of tensors, each with a leading row dimension.
+    """
+    m = rows[0].shape[0]
+    if m == 0:
+        return fn(*rows)
+    full = m - m % block
+    blocks = [fn(*(r[i:i + block].contiguous() for r in rows))
+              for i in range(0, full, block)]
+    if full < m:
+        pad = block - (m - full)
+        blocks.append(fn(*(
+            torch.nn.functional.pad(r[full:], (0, 0) * (r.dim() - 1)
+                                    + (0, pad)) for r in rows)))
+
+    def join(parts):
+        return (parts[0] if len(parts) == 1 else torch.cat(parts))[:m]
+
+    if isinstance(blocks[0], tuple):
+        return tuple(join(parts) for parts in zip(*blocks))
+    return join(blocks)

@@ -9,6 +9,8 @@ Counterpart of ``repro.index.api``::
     ivf = AshIndex.build(gen, X, cfg, backend="ivf")     # nlist = C
     scores, ids = ivf.search(queries, k=10, nprobe=8)
     index.add(X_new); index.delete([3, 17]); index.compact()
+    ids = index.stage_add(X_more)       # buffered; ids assigned now
+    index.apply_pending()               # one backend add for the batch
     index.save("/tmp/idx")
     index = AshIndex.load("/tmp/idx")
 
@@ -348,6 +350,34 @@ class IVFBackend:
                                   rerank=rerank, **opts)
 
     @staticmethod
+    def probe_sets(state, prep, nprobe=None) -> np.ndarray:
+        """Host-visible coarse assignment: (m, nprobe) int32 probed list
+        ids per query, best first: the lists the gathered search scans
+        at that nprobe (a smaller nprobe's set is a column prefix)."""
+        nprobe = IVFBackend.resolve_nprobe(state, nprobe)
+        return IV._probe_lists(state, prep, nprobe).to(
+            torch.int32).cpu().numpy()
+
+    @staticmethod
+    def search_probed(state, prep, probe, *, k, rerank=0, **opts):
+        """Top-k over an explicit probed-list set, as returned by
+        :meth:`probe_sets`."""
+        return IV._search_probed(
+            state, prep, torch.as_tensor(probe, dtype=torch.int32), k=k,
+            rerank=rerank, **opts,
+        )
+
+    @staticmethod
+    def list_sizes(state) -> np.ndarray:
+        """Live rows per inverted list, host numpy (nlist,) int64: what
+        probing a list costs the gathered scan (tombstoned rows are
+        dropped from the candidate table, so they cost nothing)."""
+        valid = state.invlists >= 0
+        if state.live is not None:
+            valid &= state.live[state.invlists.clamp(min=0).long()]
+        return valid.sum(dim=1).cpu().numpy().astype(np.int64)
+
+    @staticmethod
     def next_id_of(state):
         return C.effective_next_id(state.next_id, state.ids, state.payload.n)
 
@@ -384,8 +414,10 @@ class AshIndex:
 
     :meth:`delete` tombstones rows (a validity bitmap fed to the fused
     kernel's runtime mask operand, so deleted ids never surface);
-    :meth:`compact` evicts them.  Staged adds (``stage_add`` /
-    ``apply_pending``) come with the serving slice of the port.
+    :meth:`compact` evicts them.  :meth:`stage_add` buffers rows on the
+    host (ids assigned at once) until :meth:`apply_pending` ingests them
+    in one backend add: the serving engine's batched mutations.
+    Tombstones and staged rows both survive save/load.
     """
 
     def __init__(self, backend: str, metric: str, state):
@@ -393,6 +425,12 @@ class AshIndex:
         self._backend_name = backend
         self._metric = C.validate_metric(metric)
         self._state = state
+        self._pending_add: list[np.ndarray] = []
+        # bumped on every state rewrite (an add, a delete that removed
+        # rows, an apply_pending that ingested rows, a compaction): the
+        # background compactor compares epochs to detect a mutation
+        # between its snapshot and its swap
+        self._mutation_epoch = 0
 
     @classmethod
     def build(
@@ -469,21 +507,62 @@ class AshIndex:
 
     def add(self, X_new) -> "AshIndex":
         """Encode and ingest new vectors; ids continue past every id
-        ever assigned.  Returns self."""
+        ever assigned.  Staged rows are applied first, so ids follow
+        submission order.  Returns self."""
+        self.apply_pending()
         self._state = self._backend.add(self._state, X_new)
+        self._mutation_epoch += 1
         return self
+
+    def stage_add(self, X_new) -> np.ndarray:
+        """Buffer rows on the host for a later batched ingestion;
+        returns the (n,) int64 user ids they will carry, assigned now in
+        submission order.  Staged rows are invisible to search until
+        :meth:`apply_pending`."""
+        if isinstance(X_new, torch.Tensor):
+            X_new = X_new.detach().cpu().numpy()
+        X = np.ascontiguousarray(np.asarray(X_new), dtype=np.float32)
+        if X.ndim == 1:
+            X = X[None, :]
+        dim = self.model.landmarks.shape[1]
+        if X.ndim != 2 or X.shape[1] != dim:
+            raise ValueError(
+                f"stage_add rows must be (n, {dim}): got {X.shape}"
+            )
+        start = self.next_id + self.pending_rows
+        if X.shape[0]:
+            self._pending_add.append(X)
+        return np.arange(start, start + X.shape[0], dtype=np.int64)
+
+    def apply_pending(self) -> int:
+        """Ingest every staged row in one backend add; returns the rows
+        applied (0 = nothing staged)."""
+        if not self._pending_add:
+            return 0
+        rows = np.concatenate(self._pending_add, axis=0)
+        self._pending_add = []
+        self._state = self._backend.add(self._state, torch.from_numpy(rows))
+        self._mutation_epoch += 1
+        return rows.shape[0]
 
     def delete(self, ids) -> int:
         """Tombstone rows by user id; returns the rows newly removed
-        (unknown or already-deleted ids are ignored)."""
+        (unknown or already-deleted ids are ignored).  Staged rows are
+        applied first, so a just-staged id can be deleted."""
+        self.apply_pending()
         self._state, removed = self._backend.delete(self._state, ids)
+        if removed:
+            self._mutation_epoch += 1
         return removed
 
     def compact(self, max_dead_fraction: float = 0.0) -> "AshIndex":
         """Evict tombstoned rows when the dead fraction exceeds
-        ``max_dead_fraction``; user ids stay stable.  Returns self."""
+        ``max_dead_fraction``; user ids stay stable.  Staged rows are
+        applied first.  Returns self."""
+        self.apply_pending()
         if self.dead_fraction > max_dead_fraction:
             self._state = self._backend.compact(self._state)
+            self._mutation_epoch += 1
         return self
 
     # -- persistence --------------------------------------------------
@@ -493,6 +572,12 @@ class AshIndex:
         atomically, in the reference's format."""
         p = pathlib.Path(path)
         arrays, backend_meta = self._backend.to_arrays(self._state)
+        if self._pending_add:
+            # staged rows ride along: a batched ingestion in flight is
+            # not lost to a save/load cycle
+            arrays["pending_add"] = torch.from_numpy(
+                np.concatenate(self._pending_add, axis=0)
+            )
         encoded, dtypes, checksums = {}, {}, {}
         for name, t in arrays.items():
             a, dtypes[name] = _encode_array(t)
@@ -530,13 +615,7 @@ class AshIndex:
         dev = resolve_device(device)
         p = pathlib.Path(path)
         meta, encoded = _read_index_dir(p)
-        if "pending_add" in encoded:
-            raise NotImplementedError(
-                f"{p} holds rows staged by stage_add() and not yet "
-                "applied; staged adds come with the serving slice of the "
-                "port (ROADMAP queue 1 item 9) — apply_pending() and save "
-                "again with the reference package"
-            )
+        pending = encoded.pop("pending_add", None)
         try:
             arrays = {
                 name: _decode_array(a, meta["dtypes"][name], dev)
@@ -549,7 +628,10 @@ class AshIndex:
         state = impl.from_arrays(
             arrays, meta["backend_meta"], config, meta["metric"]
         )
-        return cls(meta["backend"], meta["metric"], state)
+        index = cls(meta["backend"], meta["metric"], state)
+        if pending is not None:
+            index._pending_add = [np.asarray(pending, dtype=np.float32)]
+        return index
 
     # -- introspection ------------------------------------------------
 
@@ -596,8 +678,21 @@ class AshIndex:
         return self.n_dead / max(1, self.n)
 
     @property
+    def pending_rows(self) -> int:
+        """Rows staged by :meth:`stage_add`, not yet ingested."""
+        return sum(p.shape[0] for p in self._pending_add)
+
+    @property
+    def mutation_epoch(self) -> int:
+        """Count of state rewrites (adds applied, deletes that removed
+        rows, compactions): equal epochs mean an unchanged searchable
+        state, the background compactor's swap check."""
+        return self._mutation_epoch
+
+    @property
     def next_id(self) -> int:
-        """User id the next added row receives (never reused)."""
+        """User id the next added row receives (never reused); staged
+        rows already hold theirs."""
         return self._backend.next_id_of(self._state)
 
     def __len__(self) -> int:
@@ -605,7 +700,9 @@ class AshIndex:
 
     def __repr__(self) -> str:
         cfg = self.config
-        dead = f", dead={self.n_dead}" if self.n_dead else ""
+        dead = ""
+        if self.n_dead or self.pending_rows:
+            dead = f", dead={self.n_dead}, pending={self.pending_rows}"
         return (
             f"AshIndex(backend={self._backend_name!r}, "
             f"metric={self._metric!r}, n={self.n}{dead}, b={cfg.b}, "

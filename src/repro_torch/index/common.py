@@ -34,6 +34,7 @@ from repro_torch.core import scoring as S
 from repro_torch.core.types import (
     ASHModel, ASHPayload, ASHStats, CoarseCodes, QueryPrep,
 )
+from repro_torch.device import row_blocked
 from repro_torch.kernels import ops as K
 from repro_torch.kernels.ref import stable_top_k
 
@@ -317,17 +318,19 @@ def _execute_gather(model, prep, payload, plan, *, stats, raw,
 
 def exact_scores(prep: QueryPrep, cand: torch.Tensor, metric: str):
     """Metric-aware exact scores of raw candidates (m, R, D) -> (m, R),
-    higher-is-better; inner products by broadcast-multiply and reduce."""
-    ip = (prep.q[:, None, :] * cand).sum(dim=-1)
+    higher-is-better; inner products by broadcast-multiply and reduce,
+    over blocks of a fixed query count (:func:`row_blocked`: a reduction
+    over more outputs may take another summation order)."""
     if metric == "dot":
-        return ip
+        return row_blocked(lambda q, c: (q[:, None, :] * c).sum(dim=-1),
+                           prep.q, cand)
+    ip, c_sq = row_blocked(lambda q, c: ((q[:, None, :] * c).sum(dim=-1),
+                                         (c * c).sum(dim=-1)), prep.q, cand)
     if metric == "l2":
-        return -(
-            prep.q_sq_norm[:, None] - 2.0 * ip + (cand * cand).sum(dim=-1)
-        )
+        return -(prep.q_sq_norm[:, None] - 2.0 * ip + c_sq)
     if metric == "cos":
         q_norm = torch.sqrt(torch.clamp(prep.q_sq_norm, min=_EPS))[:, None]
-        c_norm = torch.clamp(torch.sqrt((cand * cand).sum(dim=-1)), min=_EPS)
+        c_norm = torch.clamp(torch.sqrt(c_sq), min=_EPS)
         return ip / (q_norm * c_norm)
     raise ValueError(metric)
 

@@ -23,7 +23,9 @@ import torch
 
 from repro_torch.core import quantization as Q
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.ash_score import _ptr, _stream
+from repro_torch.kernels.ash_score import (
+    _count_lock, _ptr, _stream, count_launch,
+)
 
 G_MAX = 8  # query heads per KV stream the kernel takes
 D_MAX = 256  # packed code width (words * codes per word) it takes
@@ -35,7 +37,8 @@ _lib = None
 
 
 def reset_launch_counts() -> None:
-    launch_counts["ash_kv_attn"] = 0
+    with _count_lock:
+        launch_counts["ash_kv_attn"] = 0
 
 
 def _kernels() -> ctypes.CDLL:
@@ -151,5 +154,5 @@ def ash_kv_attn_cuda(
     )
     if rc:
         raise RuntimeError(f"ash_kv_attn kernel launch failed: cudaError {rc}")
-    launch_counts["ash_kv_attn"] += 1
+    count_launch(launch_counts, "ash_kv_attn")
     return out

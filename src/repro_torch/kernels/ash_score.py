@@ -20,7 +20,9 @@ or raises; for a CPU tensor it runs the kernel's plain PyTorch version
 from ``repro_torch.kernels.ref``.  ``launch_counts`` counts launches,
 one per kernel launch and nowhere else, so a run can show which
 kernels its main path went through.  ``merge_launches`` counts each merge
-launch once more, under the fused scan whose strip it reduced.
+launch once more, under the fused scan whose strip it reduced.  Both are
+updated under one lock (:func:`count_launch`): the serving engine
+launches from several threads at once.
 
 Bound and design notes are in the CUDA sources.  The fused dense,
 gathered and coarse scans (kernels 2, 4 and 6) emit a strip of 64-bit
@@ -34,6 +36,7 @@ gathered scan's positions back to payload rows on the card.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -69,10 +72,21 @@ MERGE_MAX_K = 512  # the selection lists live in shared memory
 _libs: dict[str, ctypes.CDLL] = {}
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(counts: dict, name: str) -> None:
+    """Add one to ``counts[name]`` under the counters' lock (an
+    unguarded ``+= 1`` from two threads can lose one)."""
+    with _count_lock:
+        counts[name] += 1
+
+
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, merge_launches):
-        for name in counts:
-            counts[name] = 0
+    with _count_lock:
+        for counts in (launch_counts, merge_launches):
+            for name in counts:
+                counts[name] = 0
 
 
 def _kernels(source: str = "ash_score") -> ctypes.CDLL:
@@ -191,7 +205,7 @@ def ash_topk_merge_cuda(keys: torch.Tensor, k: int, run: int, rows=None,
             _ptr(keys), _ptr(rows), _ptr(vals), _ptr(ids), m, width, k, run,
             0 if rows is None else rows.shape[1], _stream(keys.device))
     if scan is not None:
-        merge_launches[scan] += 1
+        count_launch(merge_launches, scan)
     return vals, ids
 
 
@@ -235,7 +249,7 @@ def ash_score_cuda(
     )
     if rc:
         raise RuntimeError(f"ash_score kernel launch failed: cudaError {rc}")
-    launch_counts["ash_score"] += 1
+    count_launch(launch_counts, "ash_score")
     return out
 
 
@@ -281,7 +295,7 @@ def _launch(source: str, fn: str, name: str, *args) -> None:
     rc = getattr(_kernels(source), fn)(*args)
     if rc:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    launch_counts[name] += 1
+    count_launch(launch_counts, name)
 
 
 def _check_rows(rows, m):

@@ -23,18 +23,35 @@ kernels in two passes over the variants (the second in reverse order),
 each time as 30 launches captured in a CUDA graph and replayed, and
 holds the output of every variant but the diagnostics EQUAL to the
 shipped kernel's: kernels 1, 3 and 5 bit for bit, and the key strips of
-the fused scans (kernels 2, 4 and 6) key for key.  Prints one JSON
-object and writes it to ``chiprun_out/probe.json``.  Needs a CUDA card.
+the fused scans (kernels 2, 4 and 6) key for key.
+
+``--source requests`` times whole requests instead: direct
+``AshIndex.search`` on ``chip_smoke.py``'s phase-3 index (n = 10^6
+vectors of ``embedding_dataset(seed=0)`` at D = 256, the model trained
+as there, the IVF index over the same payload) on the routes of phases
+5 and 5b (8 rows a request), 1-row flat requests, 1,024-row flat
+requests at k = 100 and with rerank = 256, and ``AshIndex.prepare`` of
+8 and of 1,024 rows.  A request is timed on the host clock from the
+call to ``torch.cuda.synchronize()`` after it.  Each checkout runs in a
+process of its own with its own package and kernels (each builds its
+kernels into its own ``build/``, the builds started together): with
+``--parent DIR`` the checkout holding that ``csrc`` (its ``src`` three
+levels up), in the order parent, this, this, parent.
+
+Prints one JSON object and writes it to ``chiprun_out/probe.json``.
+Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import json
+import os
 import pathlib
 import re
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -431,19 +448,151 @@ def calls(lib, source, fused, flat, gath, rows, coarse, wide, b, n_sm):
     return out
 
 
+# ``--source requests``: (name, backend, rows a request, requests,
+# search keywords); the 8-row routes are phases 5 and 5b's
+REQUEST_ROUTES = (
+    ("flat_k100", "flat", REQ_M, 300, dict(k=K)),
+    ("flat_k10_rerank256", "flat", REQ_M, 300, dict(k=10, rerank=256)),
+    ("ivf_k100", "ivf", REQ_M, 300, dict(k=K, nprobe=NPROBE)),
+    ("ivf_k10_rerank256", "ivf", REQ_M, 300,
+     dict(k=10, nprobe=NPROBE, rerank=256)),
+    ("flat_coarse_k10", "flat", REQ_M, 300, dict(k=10, coarse="int8")),
+    ("flat_coarse_k10_rerank256", "flat", REQ_M, 300,
+     dict(k=10, coarse="int8", rerank=256)),
+    ("ivf_coarse_k10", "ivf", REQ_M, 300,
+     dict(k=10, nprobe=NPROBE, coarse="int8")),
+    ("flat_k10_1q", "flat", 1, 300, dict(k=10)),
+    ("flat_k100_1024q", "flat", 1024, 30, dict(k=K)),
+    ("flat_k10_rerank256_1024q", "flat", 1024, 30, dict(k=10, rerank=256)),
+)
+REQUEST_WARMUP = 10
+
+
+def _pct(v, p):
+    v = sorted(v)
+    return v[min(len(v) - 1, int(round(p / 100 * (len(v) - 1))))]
+
+
+def request_times() -> dict:
+    """One checkout's request latencies (the package imported as
+    ``repro_torch`` is the one timed)."""
+    from repro_torch.core import ash as A
+    from repro_torch.core.types import ASHConfig
+    from repro_torch.data.synthetic import embedding_dataset
+    from repro_torch.index import AshIndex
+
+    dev = torch.device("cuda")
+    n, n_q = 1_000_000, 1128  # chip_smoke.py's N and held-out rows
+    data = embedding_dataset(n + n_q, 256, seed=0, device=dev)
+    X, queries = data[:n], data[n:]
+    cfg = ASHConfig(b=2, d=128, n_landmarks=64)
+    gen = torch.Generator().manual_seed(0)
+    model, _ = A.train(gen, X, cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flat = AshIndex.build(gen, X, cfg, metric="dot", device=dev,
+                          model=model, keep_raw=True)
+    torch.cuda.synchronize()
+    out = {"encode_s": time.perf_counter() - t0}
+    ivf = AshIndex.from_parts(model, flat.payload, backend="ivf",
+                              metric="dot", raw=flat._state.raw)
+    indexes = {"flat": flat, "ivf": ivf}
+    del X, data
+
+    def timed(fn, n_req):
+        for r in range(REQUEST_WARMUP):
+            fn(r)
+        torch.cuda.synchronize()
+        lat = []
+        for r in range(n_req):
+            t0 = time.perf_counter()
+            fn(r)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        return dict(p50_ms=_pct(lat, 50), p99_ms=_pct(lat, 99),
+                    mean_ms=sum(lat) / len(lat), requests=n_req)
+
+    for name, backend, m, n_req, kw in REQUEST_ROUTES:
+        idx = indexes[backend]
+
+        def request(r, idx=idx, m=m, kw=kw):
+            o = (r * m) % (n_q - m + 1)
+            idx.search(queries[o:o + m], **kw)
+
+        out[name] = timed(request, n_req)
+    for m, n_req in ((REQ_M, 300), (1024, 30)):
+        out[f"prepare_{m}"] = timed(
+            lambda r, m=m: flat.prepare(queries[:m]), n_req)
+    return out
+
+
+def compare_requests(parent) -> list:
+    """``request_times`` of this checkout and, with ``parent`` (a
+    ``csrc`` directory), of the checkout holding it, each in its own
+    process: parent, this, this, parent."""
+    here = ROOT / "src"
+    srcs = [here] if parent is None else [parent.resolve().parents[2],
+                                          here, here,
+                                          parent.resolve().parents[2]]
+    builds = [subprocess.Popen(
+        [sys.executable, "-c", "from repro_torch.kernels import _build; "
+         "_build.build_all()"], env={**os.environ, "PYTHONPATH": str(src)})
+        for src in dict.fromkeys(srcs)]
+    if any(b.wait() for b in builds):
+        raise RuntimeError("a checkout's kernels did not build")
+    rows = []
+    for src in srcs:
+        run = subprocess.run(
+            [sys.executable, __file__, "--request-worker"],
+            env={**os.environ, "PYTHONPATH": str(src)},
+            capture_output=True, text=True)
+        if run.returncode:
+            raise RuntimeError(f"{src}: {run.stderr[-4000:]}")
+        row = json.loads(run.stdout.strip().splitlines()[-1])
+        row["src"] = str(src.relative_to(ROOT))
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=pathlib.Path,
                     help="another checkout's kernels/csrc directory, "
                          "built and timed as the variant 'parent'")
-    ap.add_argument("--source", action="append", choices=SOURCES,
-                    help="only the variants of this file (repeatable; "
-                         "default all three)")
+    ap.add_argument("--source", action="append",
+                    choices=(*SOURCES, "requests"),
+                    help="only the variants of this file, or request "
+                         "times (repeatable; default the three files)")
+    ap.add_argument("--request-worker", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     sources = args.source or SOURCES
     if not torch.cuda.is_available():
         print("probe: needs a CUDA card", file=sys.stderr)
         return 2
+    if args.request_worker:
+        print(json.dumps(request_times()), flush=True)
+        return 0
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    result = dict(device=smi, torch=torch.__version__)
+    if "requests" in sources:
+        result["requests"] = compare_requests(args.parent)
+    sources = [s for s in sources if s != "requests"]
+    ok = not sources or variants_run(args.parent, sources, result)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "probe.json").write_text(json.dumps(result, indent=1))
+    print(json.dumps(result))
+    return 0 if ok else 1
+
+
+def variants_run(parent, sources, result) -> bool:
+    """The kernel variants of ``sources``: their times, equalities and
+    registers into ``result``; True when every compared variant equals
+    the shipped kernel."""
     dev = torch.device("cuda")
     variants, spec = [], {}
     for label, source, consts, edits, compared, fused in VARIANTS:
@@ -453,10 +602,9 @@ def main(argv=None) -> int:
             edits = (*edits, SCAN_ONLY[source])
         variants.append((label, _build.CSRC, source, consts, edits))
         spec[(label, source)] = (compared, fused)
-    if args.parent is not None:
+    if parent is not None:
         for source in sources:
-            variants.append(("parent", args.parent.resolve(), source, {},
-                             ()))
+            variants.append(("parent", parent.resolve(), source, {}, ()))
             spec[("parent", source)] = (True, True)
     libs = build(variants)
     flat, gath, rows, coarse = operands(dev)
@@ -489,9 +637,6 @@ def main(argv=None) -> int:
         for key in pass_order:
             times.setdefault(f"{key[0]}/{key[1]}", []).append(
                 graph_ms(runs[key][0]))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
     regs = {}
     for (label, source), path in libs.items():
         for ln in path.with_suffix(".log").read_text().splitlines():
@@ -506,13 +651,8 @@ def main(argv=None) -> int:
                 regs[f"{label}/{source}"] = int(m.group(1))
             if m and "ash_coarse_topk_kernelILi2ELi0ELi1E" in cur:
                 regs[f"{label}/{source}/k6"] = int(m.group(1))
-    result = dict(device=smi, torch=torch.__version__,
-                  ms=times, equal_to_shipped=equal, registers=regs)
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
-    (out / "probe.json").write_text(json.dumps(result, indent=1))
-    print(json.dumps(result))
-    return 0 if all(equal.values()) else 1
+    result.update(ms=times, equal_to_shipped=equal, registers=regs)
+    return all(equal.values())
 
 
 if __name__ == "__main__":

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import quantization as Q
-from repro_torch.device import full_fp32
+from repro_torch.device import full_fp32, row_blocked
 
 ID_SENTINEL = 2**31 - 1  # id of an exhausted selection slot
 TOPK_BLOCK_N = 512  # rows per selection tile (as the reference's block_n)
@@ -36,11 +36,13 @@ def ash_score_ref(
     b: int,
 ) -> torch.Tensor:
     """Asymmetric ASH scores (Eq. 20): (m, n) f32.  d_pad is implied by
-    the packed width; the pad lanes of q_proj must be zero."""
+    the packed width; the pad lanes of q_proj must be zero.  A row's
+    scores do not depend on the other rows of q_proj
+    (:func:`row_blocked`), as a kernel's, which scores a row a thread."""
     full_fp32()
     d_pad = codes.shape[1] * Q.codes_per_word(b)
-    V = Q.unpack_codes(codes, d_pad, b).to(torch.float32)
-    dot = q_proj.to(torch.float32) @ V.T
+    V_T = Q.unpack_codes(codes, d_pad, b).to(torch.float32).T
+    dot = row_blocked(lambda q: q @ V_T, q_proj.to(torch.float32))
     bias = ip_q_landmarks.to(torch.float32)[:, cluster.long()]
     return (
         dot * scale.to(torch.float32)[None, :]

@@ -877,3 +877,110 @@ def test_decode_step_on_card_matches_cpu(cuda, kv_quant_bits):
                                     use_kernel=False)
         torch.testing.assert_close(b2, b, rtol=1e-3,
                                    atol=1e-3 * b.abs().max().item())
+
+
+# -- the serving engine on the card ----------------------------------------
+# Engine results EQUAL to direct search: a row's prep and scores do not
+# depend on the rows searched with it, on the card as on the CPU.
+
+ENGINE_ROUTES = (
+    ("flat", dict(k=10)), ("flat", dict(k=100)),
+    ("flat", dict(k=10, rerank=64)), ("flat", dict(k=10, coarse="int8")),
+    ("flat", dict(k=10, coarse="int8", rerank=64)),
+    ("ivf", dict(k=10, nprobe=8)), ("ivf", dict(k=100, nprobe=8)),
+    ("ivf", dict(k=10, nprobe=8, rerank=64)),
+    ("ivf", dict(k=10, nprobe=8, coarse="int8")),
+)
+
+
+@pytest.fixture(scope="module")
+def wide_indexes():
+    """Flat and IVF indexes at D = 256, d = 128, C = 64 on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    data = embedding_dataset(8000 + 128, 256, seed=2, device="cuda")
+    flat = AshIndex.build(torch.Generator().manual_seed(0), data[:8000],
+                          ASHConfig(b=2, d=128, n_landmarks=64),
+                          learned=False, keep_raw=True)
+    ivf = AshIndex.from_parts(flat.model, flat.payload, backend="ivf",
+                              raw=flat._state.raw)
+    return {"flat": flat, "ivf": ivf}, data[8000:]
+
+
+def test_rows_alone_equal_rows_in_a_batch_on_card(wide_indexes):
+    indexes, Q = wide_indexes
+    batch = indexes["flat"].prepare(Q)
+    for off, m in ((0, 1), (77, 1), (5, 8), (40, 32)):
+        alone = indexes["flat"].prepare(Q[off:off + m])
+        for f in ("q", "q_proj", "ip_q_landmarks", "q_sq_norm"):
+            assert torch.equal(getattr(alone, f),
+                               getattr(batch, f)[off:off + m]), (off, m, f)
+    for name, kw in ENGINE_ROUTES:
+        sb, ib = indexes[name].search(Q, **kw)
+        for off, m in ((0, 1), (77, 1), (5, 8), (40, 32)):
+            s, i = indexes[name].search(Q[off:off + m], **kw)
+            assert torch.equal(s, sb[off:off + m]), (name, kw, off, m)
+            assert torch.equal(i, ib[off:off + m]), (name, kw, off, m)
+
+
+@pytest.mark.parametrize("name,kw", ENGINE_ROUTES)
+def test_engine_equals_direct_search_on_card(wide_indexes, name, kw):
+    from repro_torch.serving import QueryEngine
+
+    indexes, Q = wide_indexes
+    eng = QueryEngine(indexes, batch_buckets=(8, 32), k_buckets=(10, 100),
+                      max_wait_s=60.0)
+    Qh = Q.cpu().numpy()
+    spans = ((0, 1), (1, 3), (4, 8), (12, 2), (14, 20), (34, 1))
+    tickets = [eng.submit(Qh[o:o + m], index=name, **kw) for o, m in spans]
+    eng.flush()
+    for (o, m), t in zip(spans, tickets):
+        s, i = t.result()
+        ws, wi = indexes[name].search(Q[o:o + m], **kw)
+        assert torch.equal(s, ws.cpu()) and torch.equal(i, wi.cpu()), (o, m)
+    assert eng.stats.batches < len(spans)
+
+
+def test_engine_concurrent_submit_on_card(wide_indexes):
+    """8 threads submitting to one index through the frontend: every
+    ticket EQUAL to direct search, and the fused scan's launches equal
+    the engine's fused calls (the counters lose no update)."""
+    import threading
+
+    from repro_torch.serving import QueryEngine, ServingFrontend
+
+    indexes, Q = wide_indexes
+    flat = indexes["flat"]
+    Qh = Q.cpu().numpy()
+    eng = QueryEngine(flat, batch_buckets=(8, 32), k_buckets=(10,))
+    out, errors = [], []
+
+    def client(c):
+        rng = np.random.RandomState(c)
+        try:
+            for _ in range(30):
+                m = int(rng.randint(1, 5))
+                o = int(rng.randint(0, Qh.shape[0] - m))
+                out.append((o, m, fe.search(Qh[o:o + m], k=10,
+                                            timeout=60.0)))
+        except Exception as e:
+            errors.append(e)
+
+    torch.cuda.synchronize()
+    TK.reset_launch_counts()
+    with ServingFrontend(eng) as fe:
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120.0)
+        assert not any(t.is_alive() for t in threads)
+    assert not errors and len(out) == 240
+    calls = eng.stats.batches
+    assert TK.launch_counts["ash_score_topk"] == calls
+    assert TK.merge_launches["ash_score_topk"] == calls
+    assert calls < 240
+    for o, m, (s, i) in out:
+        ws, wi = flat.search(Q[o:o + m], k=10)
+        assert torch.equal(s, ws.cpu()) and torch.equal(i, wi.cpu())
