@@ -120,8 +120,35 @@ for exact rerank.  Phases, one line each:
      fill, prep-cache hits), a ``torch.profiler`` window over 20 engine
      flushes at bucket 32 against as many direct requests (device busy
      and operations a query, idle share), and the host ms of each
-     engine step in those flushes (a ``serving`` JSON line).
+     engine step in those flushes (a ``serving`` JSON line);
+  14. phase 3's payload as ``backend="sharded"`` (run after phase 13),
+     4 and 3 logical shards on the card (3 leave 2 pad rows): flat k=10
+     and k=100 (fused), rerank 256 and ``use_kernel=False``, dot and
+     l2, each EQUAL to the flat backend and a query alone EQUAL to its
+     batch row; coarse k=10 (and with rerank 256) EQUAL to flat coarse
+     searches of each shard's rows alone, merged; 1 % deleted, 1,000
+     rows added, compacted: EQUAL to a flat twin after each step;
+     exactly 4 kernel-2 scans, 4 merges under kernel 2 and 5 merge
+     launches in all (the global one) per fused 4-shard request, read
+     from ``ash_score.launch_counts`` and ``merge_launches``; a
+     ``QueryEngine`` over it, every ticket EQUAL to direct search;
+     save/load bit-identical; p50/p99 at k=100 against flat, and a
+     profile (device time, idle share); with more than one card
+     visible, one shard per card with the same gates and the gather's
+     time (skipped, with a printed line, on one card);
+  15. phase 3's IVF index as ``backend="tiered_ivf"`` at hot sets of
+     0 bytes (every probe pages), 64 MiB (the default) and one that
+     covers every list: IVF k=100, k=10 rerank 256, coarse k=10 and
+     nprobe 64 (the dense full scan), each EQUAL to ``backend="ivf"``,
+     exactly one host-to-device transfer for each search that missed
+     the hot set and none for one that hit, none at all at the
+     covering budget once warm, tombstones EQUAL; a ``QueryEngine``
+     over it (tickets EQUAL to direct search, a ``tier`` gauge, cold
+     lists billed at ``page_row_cost``); paged bytes a request, p50
+     against HBM IVF at each budget, and the batched copy's GB/s
+     against a plain pinned copy of the same bytes.
 
+The kernels line's launches add those of phases 14-15's own searches.
 Any failed check raises; the script exits 0 only when every phase
 passed.  The last line is ``{"ok": true, "device": {...}}``.  Detailed
 results go to ``chiprun_out/chip_smoke.json``.
@@ -1384,6 +1411,404 @@ def serving_phases(results, index, ivf, queries):
     return launches, merges
 
 
+# -- the sharded and tiered backends (phases 14, 15) -----------------------
+# phase 3's index placed two more ways: row shards (several logical
+# shards on the one card; one shard per card where more are visible) and
+# inverted lists in pinned host memory paged in by probe
+SHARD_COUNTS = (4, 3)  # 10^6 rows: 4 divide, 3 leave 2 pad rows
+SHARD_DELETE = 10_000  # 1 % of the rows
+SHARD_ADD = 1_000
+IDX_TIMED = 100  # timed 8-query requests a side for p50/p99
+TIER_BUDGETS = (0, 64 << 20, 1 << 40)  # every probe pages; default; all
+TIER_TIMED = 20  # timed requests a budget (a request at 0 pages ~0.4 GB)
+
+
+class _Tally:
+    """Kernel launches and merges of the calls made through
+    :meth:`run` (the new backends' own searches; the flat and IVF
+    searches they are compared with are not counted)."""
+
+    def __init__(self):
+        self.launches, self.merges = {}, {}
+
+    def run(self, fn, *a, **kw):
+        from repro_torch.kernels import ash_score as TK
+
+        before, before_m = dict(TK.launch_counts), dict(TK.merge_launches)
+        out = fn(*a, **kw)
+        for tally, now, then in ((self.launches, TK.launch_counts, before),
+                                 (self.merges, TK.merge_launches, before_m)):
+            for name in now:
+                tally[name] = tally.get(name, 0) + now[name] - then[name]
+        return out
+
+
+def _eq(a, b):
+    import torch
+
+    return bool(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))
+
+
+def _latency(search, queries, n=IDX_TIMED):
+    """Host-clock ms of ``n`` 8-query requests (synchronized), after
+    three untimed ones: (p50, p99)."""
+    import torch
+
+    for r in range(3):
+        search(queries[r * REQ_M:(r + 1) * REQ_M])
+    lat = []
+    for r in range(n):
+        q = queries[(r % 100) * REQ_M:(r % 100 + 1) * REQ_M]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        search(q)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return pct(lat, 50), pct(lat, 99)
+
+
+def _coarse_merge(model, payload, S, q, k, rerank=0, raw=None):
+    """Flat coarse searches over ``from_parts`` of each shard's rows
+    alone, merged by a stable top-k of the union (and, with ``rerank``,
+    the merged top-``rerank`` reranked on ``raw`` by
+    ``common.exact_rerank``): the sharded coarse result computed without
+    the sharded backend."""
+    import torch
+
+    from repro_torch.core.types import ASHPayload
+    from repro_torch.index import AshIndex
+    from repro_torch.index import common as C
+
+    depth = max(rerank, k)
+    nl = -(-payload.n // S)
+    vals, ids = [], []
+    for s in range(S):
+        r0, r1 = s * nl, min((s + 1) * nl, payload.n)
+        part = ASHPayload(b=payload.b, d=payload.d, **{
+            f: getattr(payload, f)[r0:r1] for f in ASHPayload.ARRAY_FIELDS})
+        v, i = AshIndex.from_parts(model, part).search(
+            q, k=min(depth, r1 - r0), coarse="int8")
+        vals.append(v)
+        ids.append(torch.where(i < 0, -1, i + r0))
+    v, i = torch.cat(vals, 1), torch.cat(ids, 1)
+    o = torch.sort(torch.where(i < 0, 2**31 - 1, i), dim=1,
+                   stable=True).indices
+    v, i = v.gather(1, o), i.gather(1, o)
+    o = torch.sort(v, dim=1, descending=True, stable=True).indices[:, :depth]
+    v, i = v.gather(1, o), i.gather(1, o)
+    if not rerank:
+        return v, i
+    prep = AshIndex.from_parts(model, payload).prepare(q)
+    return C.exact_rerank(prep, raw, v, i, "dot", k)
+
+
+def _engine_equal(eng, idx, qh, routes, n_req=48):
+    """Submit ``n_req`` requests of 1-8 rows over ``routes`` to an
+    undriven engine, flush, and count tickets EQUAL to ``idx.search``."""
+    import torch
+
+    tickets = []
+    for j in range(n_req):
+        m = 1 + (j * 5) % 8
+        off = (j * 37) % (qh.shape[0] - m)
+        kw = routes[j % len(routes)]
+        tickets.append((off, m, kw, eng.submit(qh[off:off + m], **kw)))
+    eng.flush()
+    equal = sum(_same(t.result(timeout=300),
+                      idx.search(torch.from_numpy(qh[off:off + m]), **kw))
+                for off, m, kw, t in tickets)
+    return equal, len(tickets)
+
+
+def sharded_phase(results, index, queries, tally):
+    """Phase 14: the sharded backend over phase 3's payload, 4 and 3
+    logical shards on the one card (and one per card where more are
+    visible), held EQUAL to the flat backend."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import embedding_dataset
+    from repro_torch.index import AshIndex
+    from repro_torch.kernels import ash_score as TK
+    from repro_torch.serving import QueryEngine
+
+    t_phase = time.perf_counter()
+    dev = index.model.device
+    model, payload, raw = index.model, index.payload, index._state.raw
+    q8, q1 = queries[:REQ_M], queries[3:4]
+    out = {"shards": {}}
+    routes = (dict(k=10), dict(k=K), dict(k=10, rerank=RERANK),
+              dict(k=10, use_kernel=False))
+    flats = {m: AshIndex.from_parts(model, payload, metric=m, raw=raw)
+             for m in ("dot", "l2")}
+    shd = {}
+    for S in SHARD_COUNTS:
+        for metric, flat in flats.items():
+            sh, t_place = sync_time(
+                AshIndex.from_parts, model, payload, backend="sharded",
+                metric=metric, raw=raw, mesh=[dev] * S)
+            rows = sh._state.shards
+            check(sum(rows.n_valid) == N and rows.n_local == -(-N // S),
+                  f"S={S}: shard geometry {rows.n_local} {rows.n_valid}")
+            eq = {}
+            for kw in routes:
+                got = tally.run(sh.search, q8, **kw)
+                want = flat.search(q8, **kw)
+                alone = tally.run(sh.search, q1, **kw)
+                eq[str(kw)] = [_eq(got, want),
+                               _eq(alone, tuple(t[3:4] for t in got))]
+                check(all(eq[str(kw)]), f"S={S} {metric} {kw}: sharded "
+                      f"!= flat or a query alone != its batch row")
+            if metric == "dot":
+                # coarse keeps its shortlist per shard: EQUAL to flat
+                # coarse searches of each shard's rows alone, merged
+                for rr in (0, RERANK):
+                    got = tally.run(sh.search, q8, k=10, coarse="int8",
+                                    rerank=rr)
+                    merged = _coarse_merge(model, payload, S, q8, 10, rr,
+                                           raw)
+                    eq[f"coarse_k10_rerank{rr}_vs_merge"] = _eq(got, merged)
+                    check(_eq(got, merged),
+                          f"S={S} rerank={rr}: coarse != per-shard merge")
+                shd[S] = sh
+            out["shards"][f"S{S}_{metric}"] = dict(
+                place_s=t_place, pad_rows=S * rows.n_local - N, equal=eq)
+    sh4 = shd.pop(4)
+    shd.clear()
+
+    # launches on the fused route: S scans and S merges per request, plus
+    # the one global merge (ash_score.launch_counts, merge_launches)
+    n_req = 16
+    torch.cuda.synchronize()
+    before, before_m = dict(TK.launch_counts), dict(TK.merge_launches)
+    for r in range(n_req):
+        tally.run(sh4.search, queries[r * REQ_M:(r + 1) * REQ_M], k=K)
+    scans = TK.launch_counts["ash_score_topk"] - before["ash_score_topk"]
+    merges = TK.launch_counts["ash_topk_merge"] - before["ash_topk_merge"]
+    under = (TK.merge_launches["ash_score_topk"]
+             - before_m["ash_score_topk"])
+    check(scans == 4 * n_req and under == 4 * n_req
+          and merges == 5 * n_req,
+          f"fused sharded launches: {scans} scans, {under} shard merges, "
+          f"{merges} merges for {n_req} requests of 4 shards")
+    out["fused_launches"] = dict(requests=n_req, scans=scans,
+                                 shard_merges=under, merges=merges)
+
+    # deletes, add, compact: EQUAL to a flat twin with the same mutations
+    flat_m = AshIndex.from_parts(model, payload, metric="dot", raw=raw)
+    sh_m = AshIndex.from_parts(model, payload, backend="sharded",
+                               raw=raw, mesh=[dev] * 3)
+    victims = np.random.default_rng(14).choice(N, SHARD_DELETE,
+                                               replace=False)
+    check(sh_m.delete(victims) == flat_m.delete(victims) == SHARD_DELETE,
+          "sharded delete count")
+    new = embedding_dataset(SHARD_ADD, DIM, seed=14, device=dev)
+    mut = {}
+    for step in ("deleted", "added", "compacted"):
+        if step == "added":
+            sh_m.add(new)
+            flat_m.add(new)
+        elif step == "compacted":
+            sh_m.compact()
+            flat_m.compact()
+        mut[step] = all(_eq(tally.run(sh_m.search, q8, **kw),
+                            flat_m.search(q8, **kw)) for kw in routes[:3])
+        check(mut[step], f"sharded != flat after the {step} step")
+    check(sh_m.n == flat_m.n == N - SHARD_DELETE + SHARD_ADD,
+          "sharded rows after compaction")
+    out["mutations"] = mut
+    del flat_m, sh_m
+
+    # behind a QueryEngine: every ticket EQUAL to direct search
+    eng = QueryEngine(sh4, batch_buckets=ENG_BUCKETS,
+                      k_buckets=ENG_K_BUCKETS, max_wait_s=60.0)
+    eq_t, n_t = tally.run(_engine_equal, eng, sh4, queries.cpu().numpy(),
+                          (dict(k=10), dict(k=K), dict(k=10, rerank=RERANK)))
+    check(eq_t == n_t, f"sharded engine: {n_t - eq_t} of {n_t} tickets "
+                       "differ from direct search")
+    out["engine"] = dict(tickets=n_t, equal=eq_t,
+                         fused_calls=eng.stats.snapshot()["batches"])
+
+    # save and load: bit-identical
+    save_dir = ROOT / "build" / "chip_smoke" / "sharded"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    try:
+        sh4.save(save_dir)
+        back = AshIndex.load(save_dir, device=dev, mesh=[dev] * 4)
+        same = [_eq(back.search(q8, **kw), sh4.search(q8, **kw))
+                for kw in routes[:3]]
+        check(all(same) and back._state.axes == ("data",),
+              f"sharded save/load changed results {same}")
+    finally:
+        shutil.rmtree(save_dir.parent, ignore_errors=True)
+    out["save_load_bit_identical"] = same
+
+    # reported: 8-query k = 100 requests, 4 shards against flat
+    flat = flats["dot"]
+    p = {}
+    for name, fn in (("flat", lambda q: flat.search(q, k=K)),
+                     ("sharded4", lambda q: sh4.search(q, k=K)),
+                     ("sharded4_again", lambda q: sh4.search(q, k=K)),
+                     ("flat_again", lambda q: flat.search(q, k=K))):
+        p[name] = dict(zip(("p50_ms", "p99_ms"),
+                           tally.run(_latency, fn, queries)
+                           if name.startswith("sharded")
+                           else _latency(fn, queries)))
+    out["latency_k100"] = p
+    out["profile_sharded4"] = tally.run(
+        profile_requests, lambda q: sh4.search(q, k=K), queries)
+    out["profile_flat"] = profile_requests(lambda q: flat.search(q, k=K),
+                                           queries)
+
+    # one shard per card, where more than one card is visible
+    n_dev = torch.cuda.device_count()
+    if n_dev > 1:
+        mesh = [torch.device("cuda", i) for i in range(n_dev)]
+        shm = AshIndex.from_parts(model, payload, backend="sharded",
+                                  raw=raw, mesh=mesh)
+        same = [_eq(tally.run(shm.search, q8, **kw), flat.search(q8, **kw))
+                for kw in routes]
+        check(all(same), f"one shard per card != flat {same}")
+        res = shm.search(q8, k=K)
+        torch.cuda.synchronize()
+        parts = [torch.empty(REQ_M, K, device=d) for d in mesh[1:]]
+        gather_ms = event_ms(lambda: [t.to(mesh[0]) for t in parts])
+        out["per_card"] = dict(
+            cards=n_dev, equal=same, gather_ms=gather_ms,
+            latency_k100=dict(zip(("p50_ms", "p99_ms"), tally.run(
+                _latency, lambda q: shm.search(q, k=K), queries))),
+            result_device=str(res[1].device))
+    else:
+        out["per_card"] = "skipped: one card visible"
+        print("phase 14: one shard per card skipped (one card visible)",
+              flush=True)
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    results["sharded"] = out
+    log("sharded", **{k: v for k, v in out.items() if k != "shards"},
+        shards={k: {kk: vv for kk, vv in v.items() if kk != "equal"}
+                for k, v in out["shards"].items()})
+
+
+def tiered_phase(results, ivf, queries, tally):
+    """Phase 15: phase 3's IVF index as backend="tiered_ivf" at three
+    hot-set budgets, held EQUAL to backend="ivf" at equal probe sets."""
+    import numpy as np
+    import torch
+
+    from repro_torch.index import AshIndex
+    from repro_torch.index import tiered as T
+    from repro_torch.index.tiered import TieredIVFBackend, TieredState
+    from repro_torch.serving import QueryEngine
+
+    t_phase = time.perf_counter()
+    dev = ivf.model.device
+    q8 = queries[:REQ_M]
+    routes = (dict(k=K, nprobe=NPROBE), dict(k=10, rerank=RERANK),
+              dict(k=10, coarse="int8"), dict(k=10, nprobe=64))
+    out = {"budgets": {}}
+    tiers = {}
+    for hot in TIER_BUDGETS:
+        state, t_host = sync_time(TieredState.from_ivf, ivf._state, hot)
+        tv = AshIndex("tiered_ivf", "dot", state)
+        tiers[hot] = tv
+        eq, transfers_ok = {}, True
+        for r, kw in enumerate(routes * 2):
+            q = queries[(r + 1) * REQ_M:(r + 2) * REQ_M]
+            before = TieredIVFBackend.tier_stats(state)
+            got = tally.run(tv.search, q, **kw)
+            after = TieredIVFBackend.tier_stats(state)
+            missed = after["misses"] > before["misses"]
+            moved = after["transfers"] - before["transfers"]
+            transfers_ok &= moved == (1 if missed else 0)
+            eq[f"{r}:{kw}"] = _eq(got, ivf.search(q, **kw))
+            check(eq[f"{r}:{kw}"], f"hot={hot} {kw}: tiered != ivf")
+        check(transfers_ok, f"hot={hot}: a search that missed made other "
+                            "than one transfer")
+        if hot == TIER_BUDGETS[-1]:
+            tally.run(tv.search, q8, k=10, nprobe=64)  # every list warm
+            before = TieredIVFBackend.tier_stats(state)
+            for r in range(8):
+                tally.run(tv.search, queries[r * REQ_M:(r + 1) * REQ_M],
+                          k=K, nprobe=NPROBE)
+            after = TieredIVFBackend.tier_stats(state)
+            check(after["transfers"] == before["transfers"]
+                  and after["resident_lists"] == after["nlist"],
+                  f"covering budget paged after warm-up: {after}")
+        # reported: paged bytes a request and p50 against HBM IVF
+        s0 = TieredIVFBackend.tier_stats(state)
+        lat = tally.run(_latency, lambda q: tv.search(q, k=K, nprobe=NPROBE),
+                        queries, TIER_TIMED)
+        s1 = TieredIVFBackend.tier_stats(state)
+        n_req = TIER_TIMED + 3  # _latency's warm-up requests too
+        out["budgets"][str(hot)] = dict(
+            host_s=t_host, equal=all(eq.values()), one_transfer=transfers_ok,
+            paged_bytes_per_request=(s1["paged_bytes"] - s0["paged_bytes"])
+            / n_req,
+            transfers_per_request=(s1["transfers"] - s0["transfers"]) / n_req,
+            p50_ms=lat[0], p99_ms=lat[1], tier=s1)
+    out["ivf_latency_k100"] = dict(zip(("p50_ms", "p99_ms"), _latency(
+        lambda q: ivf.search(q, k=K, nprobe=NPROBE), queries, TIER_TIMED)))
+
+    # the batched copy against a plain pinned copy of the same bytes
+    state = TieredState.from_ivf(ivf._state, 0)
+    lists = list(range(state.nlist))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blocks = state.fetch_blocks(lists)
+    torch.cuda.synchronize()
+    fetch_s = time.perf_counter() - t0
+    nbytes = sum(t.nbytes for b in blocks.values() for t in b)
+    pin = dev.type == "cuda"
+    bufs = T.pack_blocks([state._host_block(c) for c in lists], pin=pin)[0]
+    copy_ms = event_ms(lambda: bufs.to(dev, non_blocking=True), iters=5,
+                       warmup=1)
+    plain = torch.empty(nbytes, dtype=torch.uint8, pin_memory=pin)
+    plain_ms = event_ms(lambda: plain.to(dev, non_blocking=True), iters=5,
+                        warmup=1)
+    out["copy"] = dict(
+        bytes=nbytes, fetch_all_s=fetch_s,
+        fetch_all_gbs=nbytes / fetch_s / 1e9,
+        batched_copy_gbs=bufs.numel() / copy_ms / 1e6,
+        plain_pinned_copy_gbs=nbytes / plain_ms / 1e6)
+    del blocks, bufs, plain, state
+
+    # tombstones: 1 % of the rows deleted on both
+    victims = np.random.default_rng(15).choice(N, 10_000, replace=False)
+    tv = tiers[TIER_BUDGETS[1]]
+    check(tv.delete(victims) == ivf.delete(victims) == 10_000,
+          "tiered delete count")
+    dead = [_eq(tally.run(tv.search, q8, **kw), ivf.search(q8, **kw))
+            for kw in routes]
+    check(all(dead), f"tiered != ivf with tombstones {dead}")
+    out["tombstones_equal"] = dead
+
+    # behind a QueryEngine: tickets EQUAL, the tier gauge, the paging bill
+    eng = QueryEngine(tv, batch_buckets=ENG_BUCKETS,
+                      k_buckets=ENG_K_BUCKETS, max_wait_s=60.0,
+                      row_budget=ENG_ROW_BUDGET, page_row_cost=2.0)
+    eq_t, n_t = tally.run(_engine_equal, eng, tv, queries.cpu().numpy(),
+                          (dict(k=10), dict(k=K), dict(k=10, rerank=RERANK)))
+    check(eq_t == n_t, f"tiered engine: {n_t - eq_t} of {n_t} tickets "
+                       "differ from direct search")
+    snap = eng.stats.snapshot()
+    check("tier" in snap and "default" in snap["tier"], "no tier gauge")
+    live = eng._live_list_sizes("default", tv)
+    billed = eng._billed_list_sizes("default", tv)
+    resident = TieredIVFBackend.resident_mask(tv._state)
+    want = np.where(resident, live, np.ceil(live * 2.0).astype(np.int64))
+    check(np.array_equal(billed, want) and (~resident).any(),
+          "cold lists not billed at page_row_cost")
+    out["engine"] = dict(tickets=n_t, equal=eq_t, tier=snap["tier"],
+                         cold_lists=int((~resident).sum()))
+    out["profile_tiered_64mib"] = tally.run(
+        profile_requests, lambda q: tv.search(q, k=K, nprobe=NPROBE),
+        queries)
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    results["tiered"] = out
+    log("tiered", **{k: v for k, v in out.items()
+                     if k not in ("engine",)})
+
+
 def main() -> int:
     import torch
 
@@ -2139,6 +2564,25 @@ def main() -> int:
         row["launches"] += eng_launches[row["name"]]
         if "merge_launches" in row:
             row["merge_launches"] += eng_merges[row["name"]]
+
+    # -- 14, 15. the sharded and tiered backends ----------------------------
+    # counts are zeroed first; each kernel's launches add those of the new
+    # backends' own searches (_Tally), not of the flat and IVF searches
+    # they are held against
+    TK.reset_launch_counts()
+    tally = _Tally()
+    sharded_phase(results, index, queries, tally)
+    tiered_phase(results, ivf, queries, tally)
+    for name in ("ash_score", "ash_score_topk", "ash_score_gather",
+                 "ash_score_gather_topk", "ash_score_coarse",
+                 "ash_score_coarse_topk", "ash_topk_merge"):
+        check(tally.launches.get(name, 0) > 0,
+              f"phases 14-15 never launched {name}: {tally.launches}")
+    for row in rows:
+        row["index_launches"] = tally.launches.get(row["name"], 0)
+        row["launches"] += row["index_launches"]
+        if "merge_launches" in row:
+            row["merge_launches"] += tally.merges.get(row["name"], 0)
 
     rows.append(lm_phases(results, dev))
     results["kernels"] = rows

@@ -1,4 +1,5 @@
-"""``AshIndex``: one build/search/persist surface (flat and IVF backends).
+"""``AshIndex``: one build/search/persist surface over the flat, IVF,
+sharded and tiered IVF backends.
 
 Counterpart of ``repro.index.api``::
 
@@ -8,6 +9,10 @@ Counterpart of ``repro.index.api``::
     scores, ids = index.search(queries, k=10, coarse="int8", shortlist=64)
     ivf = AshIndex.build(gen, X, cfg, backend="ivf")     # nlist = C
     scores, ids = ivf.search(queries, k=10, nprobe=8)
+    sharded = AshIndex.build(gen, X, cfg, backend="sharded",
+                             mesh=[torch.device("cuda", i) for i in ...])
+    tiered = AshIndex.build(gen, X, cfg, backend="tiered_ivf",
+                            hot_bytes=64 << 20)  # lists paged from host
     index.add(X_new); index.delete([3, 17]); index.compact()
     ids = index.stage_add(X_more)       # buffered; ids assigned now
     index.apply_pending()               # one backend add for the batch
@@ -23,6 +28,7 @@ existing one, rolled forward by :meth:`AshIndex.load`).
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
 import pathlib
@@ -33,12 +39,14 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import ash as A
 from repro_torch.core import scoring as S
 from repro_torch.core.types import (
     ASHConfig, ASHModel, ASHPayload, ASHStats, QueryPrep,
 )
 from repro_torch.device import resolve_device
 from repro_torch.index import common as C
+from repro_torch.index import distributed as DX
 from repro_torch.index import flat as F
 from repro_torch.index import ivf as IV
 
@@ -74,7 +82,6 @@ def _get_backend(name: str):
     except KeyError:
         raise ValueError(
             f"unknown backend {name!r}; available: {available_backends()}"
-            " (sharded and tiered_ivf are not ported yet)"
         ) from None
 
 
@@ -404,6 +411,232 @@ class IVFBackend:
         )
 
 
+def _host(t):
+    """A tensor (or None) on the CPU."""
+    return None if t is None else t.detach().cpu()
+
+
+def _default_mesh(device) -> list[torch.device]:
+    """One shard per visible card, or one CPU shard."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return [dev]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+class ShardedState:
+    """The unpadded rows on the host and their row-sharded placement.
+
+    The host tensors (payload, encode-time stats, bf16 raw rows for
+    rerank, user ids, the tombstone bitmap) are the source of truth that
+    add/delete/compact/save work on; ``shards`` (a
+    ``distributed.ShardSet``) is what searches scan: the payload padded
+    to a multiple of the shard count, split into equal row blocks, block
+    ``s`` on ``devices[s]``.  A delete re-places only the bitmap.  The
+    model lives on ``devices[0]``, where queries are prepared and
+    results merged.
+    """
+
+    def __init__(self, *, metric, model, payload, devices, axes, raw=None,
+                 stats=None, ids=None, live=None, next_id=None):
+        devices = [torch.device(d) for d in devices]
+        if not devices:
+            raise ValueError("a sharded index needs at least one device")
+        cluster = payload.cluster
+        if cluster.numel() and int(cluster.min()) < 0:
+            raise ValueError(
+                "pad-sentinel cluster ids in the host payload; construct "
+                "ShardedState from an unpadded payload")
+        self.metric = metric
+        self.devices = devices
+        self.axes = tuple(axes)
+        self.model = DX.model_to(model, devices[0])
+        self.payload = ASHPayload(b=payload.b, d=payload.d, **{
+            f: _host(getattr(payload, f)) for f in ASHPayload.ARRAY_FIELDS})
+        if stats is None:
+            dev_payload = DX.shard_rows([devices[0]], payload)[0]
+            stats = S.payload_stats(self.model, dev_payload)
+        self.stats = ASHStats(**{f: _host(getattr(stats, f))
+                                 for f in _STATS_FIELDS})
+        self.raw = _host(raw)
+        self.ids = _host(ids)
+        self.live = _host(live)
+        self.next_id = next_id
+        self.place()
+
+    def _pad(self) -> int:
+        return (-self.payload.n) % len(self.devices)
+
+    def _padded_valid(self):
+        if self.live is None:
+            return None
+        return DX.pad_rows(self.live.to(torch.bool), self._pad(), False)
+
+    def place(self) -> None:
+        """(Re-)place every shard from the host tensors."""
+        pad = self._pad()
+        self.shards = DX.ShardSet(
+            self.devices, self.model,
+            DX.pad_to_multiple(self.payload, len(self.devices)),
+            stats=DX.pad_stats(self.stats, pad),
+            raw=None if self.raw is None else DX.pad_rows(self.raw, pad),
+            valid=self._padded_valid())
+        self.ids_dev = None if self.ids is None else self.ids.to(
+            self.devices[0])
+
+    def place_valid(self) -> None:
+        """Re-place only the tombstone bitmap (payload, stats and raw
+        shards stay); the shard set is copied, not changed, so a
+        snapshot taken before keeps its own."""
+        self.shards = self.shards.with_valid(self._padded_valid())
+
+
+@register_backend
+class ShardedBackend:
+    """Row shards over a list of devices, searched scatter-gather from
+    one process (``distributed.search_shards``); results equal the flat
+    backend's, exact rerank included."""
+
+    name = "sharded"
+
+    @staticmethod
+    def _resolve(mesh, axes, device):
+        mesh = _default_mesh(device) if mesh is None else list(mesh)
+        return mesh, tuple(axes) if axes is not None else ("data",)
+
+    @staticmethod
+    def build(gen, X, config, *, metric, device="cuda", mesh=None, axes=None,
+              **opts):
+        """``mesh``: one device per shard (default: one per visible
+        card); ``opts`` as the flat backend's build."""
+        mesh, axes = ShardedBackend._resolve(mesh, axes, device)
+        flat = F._build(gen, X, config, metric=metric, device=mesh[0],
+                        **opts)
+        return ShardedState(metric=metric, model=flat.model,
+                            payload=flat.payload, devices=mesh, axes=axes,
+                            raw=flat.raw, stats=flat.stats)
+
+    @staticmethod
+    def from_parts(model, payload, *, metric, raw=None, mesh=None,
+                   axes=None):
+        mesh, axes = ShardedBackend._resolve(mesh, axes, model.device)
+        return ShardedState(metric=metric, model=model, payload=payload,
+                            devices=mesh, axes=axes, raw=raw)
+
+    @staticmethod
+    def search(state, queries, *, k, nprobe=None, rerank=0, **opts):
+        prep = S.prepare_queries(state.model, queries)
+        return ShardedBackend.search_prepped(state, prep, k=k, rerank=rerank,
+                                             **opts)
+
+    @staticmethod
+    def search_prepped(state, prep, *, k, nprobe=None, rerank=0,
+                       use_kernel=True, coarse=None, shortlist=None):
+        del nprobe  # no list routing in the scatter-gather scan
+        if rerank and state.raw is None:
+            raise ValueError(
+                "rerank on the sharded backend requires keep_raw=True "
+                "(bf16 raw rows are sharded with the payload)")
+        s, rows = DX.search_shards(
+            state.shards, prep, k, metric=state.metric, rerank=rerank,
+            use_kernel=use_kernel, coarse=coarse, shortlist=shortlist)
+        if state.ids_dev is None:
+            return s, rows
+        return s, torch.where(rows < 0, -1,
+                              state.ids_dev[rows.clamp(min=0).long()])
+
+    @staticmethod
+    def add(state, X_new):
+        """Encode under the model, append stats, raw, ids and liveness
+        for the new rows, then re-place every shard."""
+        dev = state.model.device
+        X_new = X_new.to(dev)
+        payload_new = A.encode(state.model, X_new)
+        n_new = payload_new.n
+        nid = C.effective_next_id(state.next_id, state.ids, state.payload.n)
+        state.payload = C.concat_payloads(state.payload, ASHPayload(
+            b=payload_new.b, d=payload_new.d, **{
+                f: _host(getattr(payload_new, f))
+                for f in ASHPayload.ARRAY_FIELDS}))
+        stats_new = S.payload_stats(state.model, payload_new)
+        state.stats = C.concat_stats(state.stats, ASHStats(**{
+            f: _host(getattr(stats_new, f)) for f in _STATS_FIELDS}))
+        if state.raw is not None:
+            state.raw = torch.cat([state.raw,
+                                   _host(X_new.to(torch.bfloat16))])
+        if state.ids is not None:
+            state.ids = torch.cat([
+                state.ids, nid + torch.arange(n_new, dtype=torch.int32)])
+        if state.live is not None:
+            state.live = torch.cat([state.live,
+                                    torch.ones(n_new, dtype=torch.bool)])
+        if state.next_id is not None:
+            state.next_id = nid + n_new
+        state.place()
+        return state
+
+    @staticmethod
+    def delete(state, ids):
+        new_live, removed = C.mark_deleted(state.ids, state.live, ids,
+                                           state.payload.n)
+        if removed:
+            state.live = torch.from_numpy(new_live)
+            state.place_valid()
+        return state, removed
+
+    @staticmethod
+    def compact(state):
+        """Evict tombstoned rows; returns a new state (the one given is
+        not changed, so a background compaction may work on a
+        snapshot)."""
+        if state.live is None:
+            return state
+        live_np = state.live.numpy().astype(bool)
+        out = copy.copy(state)
+        if live_np.all():
+            out.live = None
+            out.place_valid()
+            return out
+        if not live_np.any():
+            raise ValueError(
+                "compact() would evict every row; an empty index cannot "
+                "be searched — keep at least one live row or rebuild")
+        nid = C.effective_next_id(state.next_id, state.ids, state.payload.n)
+        keep = torch.from_numpy(np.nonzero(live_np)[0].astype(np.int64))
+        out.ids = (keep if state.ids is None else state.ids[keep]).to(
+            torch.int32)
+        out.next_id = nid
+        out.payload = C.gather_payload(state.payload, keep)
+        out.stats = C.take_stats(state.stats, keep)
+        out.raw = None if state.raw is None else state.raw[keep]
+        out.live = None
+        out.place()
+        return out
+
+    @staticmethod
+    def next_id_of(state):
+        return C.effective_next_id(state.next_id, state.ids, state.payload.n)
+
+    @staticmethod
+    def to_arrays(state):
+        arrays = _common_arrays(state)
+        for name in ("raw", "ids", "live"):
+            if getattr(state, name) is not None:
+                arrays[name] = getattr(state, name)
+        return arrays, {"axes": list(state.axes), **_next_id_meta(state)}
+
+    @staticmethod
+    def from_arrays(arrays, meta, config, metric, *, mesh=None, axes=None):
+        model, payload, stats = _common_from_arrays(arrays, config)
+        mesh, axes = ShardedBackend._resolve(
+            mesh, axes or meta.get("axes"), model.device)
+        return ShardedState(
+            metric=metric, model=model, payload=payload, devices=mesh,
+            axes=axes, raw=arrays.get("raw"), stats=stats,
+            ids=arrays.get("ids"), live=arrays.get("live"),
+            next_id=meta.get("next_id"))
+
+
 # ---------------------------------------------------------------------------
 # The facade
 # ---------------------------------------------------------------------------
@@ -446,7 +679,10 @@ class AshIndex:
     ) -> "AshIndex":
         """Train (or reuse ``model=``), encode ``X`` and assemble the
         index on ``device``.  ``opts``: ``keep_raw``, ``learned``,
-        ``model`` and any ``core.ash.train`` keyword."""
+        ``model``, any ``core.ash.train`` keyword, and per backend
+        ``mesh``/``axes`` (sharded: one device per shard, default one
+        per visible card) or ``hot_bytes`` (tiered_ivf: the device hot
+        set's budget)."""
         impl = _get_backend(backend)
         C.validate_metric(metric)
         state = impl.build(
@@ -464,13 +700,14 @@ class AshIndex:
         backend: str = "flat",
         metric: str = "dot",
         raw: Optional[torch.Tensor] = None,
+        **opts,
     ) -> "AshIndex":
         """Wrap an already-encoded (model, payload) pair (on their
-        device)."""
+        device); ``opts`` as :meth:`build`'s per-backend ones."""
         impl = _get_backend(backend)
         C.validate_metric(metric)
-        return cls(backend, metric,
-                   impl.from_parts(model, payload, metric=metric, raw=raw))
+        return cls(backend, metric, impl.from_parts(
+            model, payload, metric=metric, raw=raw, **opts))
 
     def search(self, queries, k: int = 10, *, nprobe: Optional[int] = None,
                rerank: int = 0, use_kernel: bool = True,
@@ -608,10 +845,11 @@ class AshIndex:
             _save_fresh(p, encoded, meta)
 
     @classmethod
-    def load(cls, path, *, device="cuda") -> "AshIndex":
+    def load(cls, path, *, device="cuda", **opts) -> "AshIndex":
         """Inverse of :meth:`save` (either package's), onto ``device``;
-        search results equal the saved index's.  Integrity failures
-        raise :class:`CorruptIndexError`."""
+        search results equal the saved index's.  ``opts`` override the
+        backend's placement (``mesh``/``axes``, ``hot_bytes``).
+        Integrity failures raise :class:`CorruptIndexError`."""
         dev = resolve_device(device)
         p = pathlib.Path(path)
         meta, encoded = _read_index_dir(p)
@@ -626,7 +864,7 @@ class AshIndex:
         config = ASHConfig(**meta["config"])
         impl = _get_backend(meta["backend"])
         state = impl.from_arrays(
-            arrays, meta["backend_meta"], config, meta["metric"]
+            arrays, meta["backend_meta"], config, meta["metric"], **opts
         )
         index = cls(meta["backend"], meta["metric"], state)
         if pending is not None:

@@ -14,6 +14,9 @@ picks the route:
 * ``coarse="int8"`` puts the symmetric int8 coarse scan first and
   refines its top-``shortlist`` rows with the gathered kernels.
 
+:func:`plan_paged_probe` plans a gathered scan over the union of the
+probed inverted lists that the tiered IVF backend pages in.
+
 The fused and materializing routes return identical results, so the
 routing boundary is invisible to callers.
 
@@ -314,6 +317,79 @@ def _execute_gather(model, prep, payload, plan, *, stats, raw,
                             ids=plan.ids)
     s, rows_out = shortlist(plan.k)
     return s, _map_ids(rows_out, plan.ids)
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedScanPlan:
+    """A gathered scan whose candidate rows index a UNION of probed
+    inverted lists instead of the global payload: the tiered IVF
+    backend, whose lists live in host memory and reach the device only
+    when probed.
+
+    Built on the host by :func:`plan_paged_probe` from the probe set and
+    the contiguous-list geometry.  ``union_lists`` are the probed lists
+    in ascending id order; concatenating their row blocks in that order
+    reproduces the global (list-sorted) row order restricted to the
+    union, so a global candidate row maps into the union by a per-list
+    constant shift (``delta``), a monotone map: candidate order,
+    per-candidate scores, tie order and ids all stay those of the
+    HBM-resident gathered plan.
+    """
+
+    probe: Any  # (m, nprobe) probed list ids, numpy
+    counts: Any  # (nlist,) int64 rows per list
+    starts: Any  # (nlist,) int64 first global row of each list
+    live: Any  # (n,) bool row validity, or None
+    max_list_len: int
+    union_lists: tuple  # ascending probed list ids
+    n_union: int  # rows in the union
+    delta: Any  # (nlist,) int64: union row = global row + delta[list]
+
+    def candidate_rows(self) -> np.ndarray:
+        """(m, nprobe * max_list_len) int32 union-local candidate rows,
+        slot for slot the layout of ``invlists[probe]`` (probe order,
+        each list's tail padded with -1), tombstoned rows -1."""
+        probe = self.probe
+        m = probe.shape[0]
+        t = np.arange(self.max_list_len, dtype=np.int64)
+        g = self.starts[probe][:, :, None] + t[None, None, :]
+        valid = t[None, None, :] < self.counts[probe][:, :, None]
+        if self.live is not None:
+            live = np.asarray(self.live).astype(bool)
+            valid &= live[np.minimum(g, max(live.size - 1, 0))]
+        loc = g + self.delta[probe][:, :, None]
+        return np.where(valid, loc, -1).reshape(m, -1).astype(np.int32)
+
+
+def plan_paged_probe(probe, counts, starts, live,
+                     max_list_len: int) -> PagedScanPlan:
+    """Plan a paged gathered scan over a probe set, on the host.
+
+    ``probe``: (m, nprobe) probed list ids per query (any order,
+    duplicates allowed); ``counts``/``starts``: the contiguous list
+    geometry (``ivf.list_geometry``); ``live``: an optional (n,) row
+    validity bitmap, whose tombstones become -1 in
+    :meth:`PagedScanPlan.candidate_rows` before any copy.  Counterpart
+    of the reference's ``plan_paged_probe``: the same union and the same
+    candidates, candidate for candidate; the reference's pad of the
+    union to a few trace shapes is not needed here (nothing is
+    compiled per shape)."""
+    probe = np.asarray(probe)
+    counts = np.asarray(counts, dtype=np.int64)
+    starts = np.asarray(starts, dtype=np.int64)
+    union = np.unique(probe.ravel())
+    union = union[(union >= 0) & (union < counts.size)]
+    c_u = counts[union]
+    local_starts = np.concatenate([[0], np.cumsum(c_u)[:-1]]).astype(
+        np.int64)
+    delta = np.zeros(counts.size, dtype=np.int64)
+    delta[union] = local_starts - starts[union]
+    return PagedScanPlan(
+        probe=probe, counts=counts, starts=starts, live=live,
+        max_list_len=int(max_list_len),
+        union_lists=tuple(int(c) for c in union), n_union=int(c_u.sum()),
+        delta=delta,
+    )
 
 
 def exact_scores(prep: QueryPrep, cand: torch.Tensor, metric: str):

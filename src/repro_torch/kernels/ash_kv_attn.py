@@ -24,7 +24,7 @@ import torch
 from repro_torch.core import quantization as Q
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.ash_score import (
-    _count_lock, _ptr, _stream, count_launch,
+    _count_lock, _ptr, count_launch, launch_on,
 )
 
 G_MAX = 8  # query heads per KV stream the kernel takes
@@ -146,11 +146,11 @@ def ash_kv_attn_cuda(
     part_m = torch.empty(N, splits, G, dtype=torch.float32, device=dev)
     part_d = torch.empty_like(part_m)
     part_acc = torch.empty(N, splits, G, dv, dtype=torch.float32, device=dev)
-    rc = _kernels().ash_kv_attn_launch(
-        _ptr(q), _ptr(kc), _ptr(ks), _ptr(kb), _ptr(vc), _ptr(vs), _ptr(mk),
-        _ptr(part_m), _ptr(part_d), _ptr(part_acc), _ptr(out),
+    rc = launch_on(
+        dev, _kernels().ash_kv_attn_launch, _ptr(q), _ptr(kc), _ptr(ks),
+        _ptr(kb), _ptr(vc), _ptr(vs), _ptr(mk), _ptr(part_m), _ptr(part_d), _ptr(part_acc), _ptr(out),
         (ctypes.c_longlong * 18)(*strides), N, N2, S, G, Wk, Wv, b_k, b_v,
-        int(k_scale.dtype == torch.bfloat16), splits, rows, _stream(dev),
+        int(k_scale.dtype == torch.bfloat16), splits, rows,
     )
     if rc:
         raise RuntimeError(f"ash_kv_attn kernel launch failed: cudaError {rc}")

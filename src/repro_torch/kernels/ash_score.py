@@ -16,6 +16,7 @@ wrapper                        replaces                         source
 =============================  ===============================  ==========
 
 For a CUDA tensor a wrapper launches its kernel on the current stream
+of the tensor's device, with that device current (:func:`launch_on`),
 or raises; for a CPU tensor it runs the kernel's plain PyTorch version
 from ``repro_torch.kernels.ref``.  ``launch_counts`` counts launches,
 one per kernel launch and nowhere else, so a run can show which
@@ -145,8 +146,15 @@ def _check(codes, q_proj, scale, offset, cluster, ipq, qterm, rowterm,
             )
 
 
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def launch_on(device, entry, *args) -> int:
+    """Call the C entry point ``entry`` with ``device`` as the CUDA
+    current device and that device's current stream as its last
+    argument; returns its cudaError code.  Every launch of the port goes
+    through here: the kernels' shared-memory attribute and occupancy
+    caches are kept per device and read the current one, and a launch
+    onto a stream of another device than the current one fails."""
+    with torch.cuda.device(device):
+        return entry(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
 _sm_count: dict[int, int] = {}
@@ -202,8 +210,8 @@ def ash_topk_merge_cuda(keys: torch.Tensor, k: int, run: int, rows=None,
     if m == 0:
         return vals, ids
     _launch("ash_select", "ash_topk_merge_launch", "ash_topk_merge",
-            _ptr(keys), _ptr(rows), _ptr(vals), _ptr(ids), m, width, k, run,
-            0 if rows is None else rows.shape[1], _stream(keys.device))
+            keys.device, _ptr(keys), _ptr(rows), _ptr(vals), _ptr(ids), m,
+            width, k, run, 0 if rows is None else rows.shape[1])
     if scan is not None:
         count_launch(merge_launches, scan)
     return vals, ids
@@ -241,15 +249,11 @@ def ash_score_cuda(
     out = torch.empty(m, n, dtype=torch.float32, device=codes.device)
     if n == 0 or m == 0:
         return out
-    rc = _kernels().ash_score_launch(
-        _ptr(codes), _ptr(q_proj), _ptr(scale), _ptr(offset),
-        _ptr(cluster), _ptr(ip_q_landmarks), _ptr(qterm), _ptr(rowterm),
-        _ptr(out), n, m, wd, ip_q_landmarks.shape[1], b,
-        _METRIC_CODE[metric], _stream(codes.device),
-    )
-    if rc:
-        raise RuntimeError(f"ash_score kernel launch failed: cudaError {rc}")
-    count_launch(launch_counts, "ash_score")
+    _launch("ash_score", "ash_score_launch", "ash_score", codes.device,
+            _ptr(codes), _ptr(q_proj), _ptr(scale), _ptr(offset),
+            _ptr(cluster), _ptr(ip_q_landmarks), _ptr(qterm), _ptr(rowterm),
+            _ptr(out), n, m, wd, ip_q_landmarks.shape[1], b,
+            _METRIC_CODE[metric])
     return out
 
 
@@ -283,16 +287,18 @@ def ash_score_topk_cuda(
     return _fused_select(
         "ash_score_topk", lambda strip, L, per, n_spans: _launch(
             "ash_score", "ash_score_topk_launch", "ash_score_topk",
+            codes.device,
             _ptr(codes), _ptr(q_proj), _ptr(scale), _ptr(offset),
             _ptr(cluster), _ptr(ip_q_landmarks), _ptr(qterm), _ptr(rowterm),
             _ptr(mask), _ptr(strip), n, m, wd, ip_q_landmarks.shape[1], b,
-            _METRIC_CODE[metric], L, per, n_spans, _stream(codes.device)),
+            _METRIC_CODE[metric], L, per, n_spans),
         n, m, k, k_tilde, codes.device)
 
 
-def _launch(source: str, fn: str, name: str, *args) -> None:
-    """Call one C entry point; raise on a refused launch, else count it."""
-    rc = getattr(_kernels(source), fn)(*args)
+def _launch(source: str, fn: str, name: str, device, *args) -> None:
+    """Call one C entry point on ``device`` (:func:`launch_on`); raise on
+    a refused launch, else count it."""
+    rc = launch_on(device, getattr(_kernels(source), fn), *args)
     if rc:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
     count_launch(launch_counts, name)
@@ -326,11 +332,11 @@ def ash_score_gather_cuda(
     if m == 0 or R == 0:
         return out
     _launch("ash_gather", "ash_gather_launch", "ash_score_gather",
+            codes.device,
             _ptr(codes), _ptr(rows), _ptr(q_proj), _ptr(scale),
             _ptr(offset), _ptr(cluster), _ptr(ip_q_landmarks), _ptr(qterm),
             _ptr(rowterm), _ptr(out), n, m, R, wd,
-            ip_q_landmarks.shape[1], b, _METRIC_CODE[metric],
-            _stream(codes.device))
+            ip_q_landmarks.shape[1], b, _METRIC_CODE[metric])
     return out
 
 
@@ -374,11 +380,12 @@ def ash_score_gather_topk_cuda(
     strip = torch.empty(m, n_spans * L, dtype=torch.int64,
                         device=codes.device)
     _launch("ash_gather", "ash_gather_topk_launch", "ash_score_gather_topk",
+            codes.device,
             _ptr(codes), _ptr(rows), _ptr(q_proj), _ptr(scale),
             _ptr(offset), _ptr(cluster), _ptr(ip_q_landmarks), _ptr(qterm),
             _ptr(rowterm), _ptr(strip), n, m, R, wd,
             ip_q_landmarks.shape[1], b, _METRIC_CODE[metric], L, per,
-            n_spans, _stream(codes.device))
+            n_spans)
     return ash_topk_merge_cuda(strip, k, L, rows=rows,
                                scan="ash_score_gather_topk")
 
@@ -409,11 +416,11 @@ def ash_score_coarse_cuda(
     if n == 0 or m == 0:
         return out
     _launch("ash_coarse", "ash_coarse_launch", "ash_score_coarse",
+            codes.device,
             _ptr(codes), _ptr(q_int8), _ptr(q_scale), _ptr(q_corr),
             _ptr(scale), _ptr(offset), _ptr(cluster), _ptr(ip_q_landmarks),
             _ptr(qterm), _ptr(rowterm), _ptr(out), n, m, wd,
-            ip_q_landmarks.shape[1], b, _METRIC_CODE[metric],
-            _stream(codes.device))
+            ip_q_landmarks.shape[1], b, _METRIC_CODE[metric])
     return out
 
 
@@ -442,9 +449,10 @@ def ash_score_coarse_topk_cuda(
     return _fused_select(
         "ash_score_coarse_topk", lambda strip, L, per, n_spans: _launch(
             "ash_coarse", "ash_coarse_topk_launch", "ash_score_coarse_topk",
+            codes.device,
             _ptr(codes), _ptr(q_int8), _ptr(q_scale), _ptr(q_corr),
             _ptr(scale), _ptr(offset), _ptr(cluster), _ptr(ip_q_landmarks),
             _ptr(qterm), _ptr(rowterm), _ptr(mask), _ptr(strip), n, m, wd,
             ip_q_landmarks.shape[1], b, _METRIC_CODE[metric], L, per,
-            n_spans, _stream(codes.device)),
+            n_spans),
         n, m, k, k_tilde, codes.device)

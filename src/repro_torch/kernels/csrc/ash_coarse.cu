@@ -579,16 +579,23 @@ __global__ void __launch_bounds__(TOPK_BLOCK_N, 2)
 }
 
 // One launch of ash_coarse_kernel<B, METRIC, SPLIT>, persistent blocks
-// as many as stay resident (cached per shape).
+// as many as stay resident (cached per device and shape).
 template <int B, int METRIC, bool SPLIT>
 int launch_coarse(ScanArgs a, CoarseQ cq, int d_pad, int mq, int warps,
                   size_t smem, int ipq_shared, int copy16, float* out,
                   cudaStream_t stream) {
   int rc = set_smem(ash_coarse_kernel<B, METRIC, SPLIT>, smem);
   if (rc) return rc;
-  static size_t occ_smem = 0;
-  static int occ_warps = 0, occ_blocks = 0;
-  if (smem != occ_smem || warps != occ_warps) {
+  struct Occupancy {
+    size_t smem;
+    int warps, blocks;
+  };
+  static Occupancy occ_of[MAX_DEVICES] = {};
+  int slot = 0;
+  if ((rc = device_slot(&slot))) return rc;
+  Occupancy fresh = {0, 0, 0};
+  Occupancy& occ = slot >= 0 ? occ_of[slot] : fresh;
+  if (smem != occ.smem || warps != occ.warps) {
     int dev = 0, n_sm = 0, per_sm = 0;
     if ((rc = (int)cudaGetDevice(&dev)) ||
         (rc = (int)cudaDeviceGetAttribute(
@@ -597,10 +604,9 @@ int launch_coarse(ScanArgs a, CoarseQ cq, int d_pad, int mq, int warps,
              &per_sm, ash_coarse_kernel<B, METRIC, SPLIT>, warps * 32,
              smem)))
       return rc;
-    occ_blocks = per_sm * n_sm;
-    occ_smem = smem;
-    occ_warps = warps;
+    occ = {smem, warps, per_sm * n_sm};
   }
+  const int occ_blocks = occ.blocks;
   const int y = (a.m + mq - 1) / mq;
   const int tile_rows = warps * WARP_ROWS;
   const int n_tiles = (a.n + tile_rows - 1) / tile_rows;
@@ -657,9 +663,9 @@ int launch_coarse_topk(ScanArgs a, CoarseQ cq, int d_pad, const int32_t* mask,
                        int L, int tiles_per_span, int n_spans,
                        unsigned long long* strip, cudaStream_t stream) {
   const size_t smem = coarse_chunk_bytes(d_pad) + span_select_bytes(L);
-  static size_t smem_set = 48 * 1024;
+  static size_t smem_set[MAX_DEVICES] = {};
   int rc = set_smem_once(ash_coarse_topk_kernel<B, METRIC, N>, smem,
-                         &smem_set);
+                         smem_set);
   if (rc) return rc;
   dim3 grid(n_spans, (a.m + MT - 1) / MT);
   ash_coarse_topk_kernel<B, METRIC, N><<<grid, TOPK_BLOCK_N, smem, stream>>>(

@@ -180,4 +180,33 @@ int set_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// Per-device caches of the launch helpers (the attribute above, kernel 5's
+// occupancy) are indexed by the CUDA current device, which the Python
+// wrappers set to the operands' card; a device past the table is served
+// uncached.
+constexpr int MAX_DEVICES = 64;
+
+// The current device, or -1 past MAX_DEVICES; a runtime error as rc.
+inline int device_slot(int* slot) {
+  int dev = 0;
+  const int rc = (int)cudaGetDevice(&dev);
+  *slot = (dev >= 0 && dev < MAX_DEVICES) ? dev : -1;
+  return rc;
+}
+
+// The attribute is a property of the kernel on one device, and the call a
+// runtime round trip: it is made once per kernel instance, device and
+// size.  done[MAX_DEVICES] is the instance's table, zero-initialized.
+template <typename Kernel>
+int set_smem_once(Kernel kernel, size_t smem, size_t* done) {
+  if (smem <= 48 * 1024) return 0;
+  int slot = 0;
+  int rc = device_slot(&slot);
+  if (rc) return rc;
+  if (slot >= 0 && smem <= done[slot]) return 0;
+  rc = set_smem(kernel, smem);
+  if (rc == 0 && slot >= 0) done[slot] = smem;
+  return rc;
+}
+
 }  // namespace

@@ -244,9 +244,9 @@ int launch_gather_topk(ScanArgs a, const int32_t* rows, int R, int d_pad,
       (size_t)d_pad * sizeof(float) +
       sizeof(unsigned long long) *
           ((size_t)(TOPK_BLOCK_N / 32) * (32 * N + WARP_KEYS) + 1);
-  static size_t smem_set = 48 * 1024;
+  static size_t smem_set[MAX_DEVICES] = {};
   int rc = set_smem_once(ash_gather_topk_kernel<B, METRIC, N>, smem,
-                         &smem_set);
+                         smem_set);
   if (rc) return rc;
   dim3 grid(n_spans, a.m);
   ash_gather_topk_kernel<B, METRIC, N><<<grid, TOPK_BLOCK_N, smem, stream>>>(

@@ -651,15 +651,11 @@ int launch_kv(KVArgs a, int N, float* out, cudaStream_t stream) {
     if (smem <= (size_t)SMEM_LIMIT) break;
   }
   if (nw < 1) return (int)cudaErrorInvalidValue;
-  // the attribute call is a CUDA runtime round trip: made once per instance
-  // and size, not per launch (28 launches a decode step)
-  static size_t smem_set = 48 * 1024;
-  int rc = 0;
-  if (smem > smem_set) {
-    rc = set_smem(ash_kv_attn_kernel<BK, BV, NMV>, smem);
-    if (rc) return rc;
-    smem_set = smem;
-  }
+  // the attribute call is a CUDA runtime round trip: made once per
+  // instance, device and size, not per launch (28 launches a decode step)
+  static size_t smem_set[MAX_DEVICES] = {};
+  int rc = set_smem_once(ash_kv_attn_kernel<BK, BV, NMV>, smem, smem_set);
+  if (rc) return rc;
   dim3 grid(a.splits, N);
   ash_kv_attn_kernel<BK, BV, NMV><<<grid, 32 * nw, smem, stream>>>(a);
   rc = (int)cudaGetLastError();

@@ -192,9 +192,9 @@ int launch_topk(ScanArgs a, int d_pad, const int32_t* mask, int L,
                 cudaStream_t stream) {
   const size_t smem = (size_t)d_pad * MT * sizeof(float) +
                       span_select_bytes(L);
-  static size_t smem_set = 48 * 1024;
+  static size_t smem_set[MAX_DEVICES] = {};
   int rc = set_smem_once(ash_score_topk_kernel<B, METRIC, N>, smem,
-                         &smem_set);
+                         smem_set);
   if (rc) return rc;
   dim3 grid(n_spans, (a.m + MT - 1) / MT);
   ash_score_topk_kernel<B, METRIC, N><<<grid, TOPK_BLOCK_N, smem, stream>>>(

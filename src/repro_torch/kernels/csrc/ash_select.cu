@@ -121,8 +121,8 @@ int launch_merge(const void* keys, const void* rows, void* vals, void* ids,
                  cudaStream_t stream) {
   const size_t smem = sizeof(unsigned long long) *
                       ((size_t)MERGE_WARPS * (32 * N + WARP_KEYS) + 1);
-  static size_t smem_set = 48 * 1024;
-  int rc = set_smem_once(ash_topk_merge_kernel<N>, smem, &smem_set);
+  static size_t smem_set[MAX_DEVICES] = {};
+  int rc = set_smem_once(ash_topk_merge_kernel<N>, smem, smem_set);
   if (rc) return rc;
   ash_topk_merge_kernel<N><<<m, MERGE_THREADS, smem, stream>>>(
       static_cast<const unsigned long long*>(keys),

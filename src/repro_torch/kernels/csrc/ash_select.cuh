@@ -265,14 +265,4 @@ __device__ __forceinline__ void span_topk(const ScanArgs& a,
   }
 }
 
-// Shared memory above 48 KB needs the attribute; the call is a runtime
-// round trip, so it is made once per kernel instance and size.
-template <typename Kernel>
-int set_smem_once(Kernel kernel, size_t smem, size_t* done) {
-  if (smem <= *done) return 0;
-  const int rc = set_smem(kernel, smem);
-  if (rc == 0) *done = smem;
-  return rc;
-}
-
 }  // namespace

@@ -2,7 +2,7 @@
 
 Counterpart of ``repro.serving.cache`` (the port keeps its own copy):
 the per-row ``QueryPrep`` LRU of :mod:`repro_torch.serving.engine`
-runs on it, and the tiered backend's hot set will when it is ported.
+runs on it, and so does the tiered backend's hot set.
 Values are sized by their ``.nbytes`` (numpy arrays and torch tensors
 alike).
 

@@ -130,8 +130,8 @@ NEG_INF = float("-inf")
 
 # backends that route coarsely through inverted lists: nprobe grouping,
 # the candidate-row cost model and adaptive probing apply to all of
-# them (the tiered backend, ROADMAP item 11, additionally bills paging,
-# see _billed_list_sizes)
+# them (the tiered backend additionally bills paging, see
+# _billed_list_sizes)
 _IVF_LIKE = ("ivf", "tiered_ivf")
 
 # failure windows of the mutation apply path: before anything happened,
@@ -198,8 +198,7 @@ class EngineConfig:
     # coarse rows at full price — the conservative default.
     coarse_row_cost: float = 1.0
     # relative cost of one candidate row in a NON-resident inverted
-    # list of a tiered index (backend="tiered_ivf", not ported yet:
-    # ROADMAP item 11): probing a cold
+    # list of a tiered index (backend="tiered_ivf"): probing a cold
     # list pays a host->device transfer on top of the scan, so it
     # bills more than a hot row.  Residency is sampled when the bill
     # folds and is advisory — the hot set may shift before the flush.
@@ -1418,6 +1417,13 @@ class QueryEngine:
                 ),
                 "queue_pressure": round(pressure, 4),
             }
+            tier = {
+                nm: ix._backend.tier_stats(ix._state)
+                for nm, ix in self._indexes.items()
+                if ix.backend == "tiered_ivf"
+            }
+            if tier:
+                gauges["tier"] = tier
             return gauges
 
     def _notify_work(self) -> None:

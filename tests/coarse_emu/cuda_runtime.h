@@ -63,10 +63,16 @@ typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+// the current device cudaGetDevice reports, and the attribute calls made
+extern int emu_device;
+extern int emu_attribute_calls;
 template <class K>
-cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return 0; }
+cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
+  ++emu_attribute_calls;
+  return 0;
+}
 inline cudaError_t cudaGetLastError() { return 0; }
-inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaGetDevice(int* d) { *d = emu_device; return 0; }
 extern int emu_n_sm;
 inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
   *v = emu_n_sm;

@@ -17,6 +17,8 @@
 thread_local uint3 threadIdx, blockIdx;
 dim3 blockDim, gridDim;
 int emu_n_sm = 3;  // a few persistent blocks, so that each loops
+int emu_device = 0;
+int emu_attribute_calls = 0;
 static char* smem_base = nullptr;
 static size_t smem_size = 0;
 static std::unique_ptr<std::barrier<>> block_bar;

@@ -984,3 +984,60 @@ def test_engine_concurrent_submit_on_card(wide_indexes):
     for o, m, (s, i) in out:
         ws, wi = flat.search(Q[o:o + m], k=10)
         assert torch.equal(s, ws.cpu()) and torch.equal(i, wi.cpu())
+
+
+# -- a second card: launches under the operands' device --------------------
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+def test_kernels_2_and_6_on_a_second_card(two_cards, metric):
+    """Kernels 2 and 6 with their operands on cuda:1 while cuda:0 is
+    current, at k = 500 (the merge needs shared memory above 48 KB, an
+    attribute set once per device): EQUAL to the same launches on
+    cuda:0, and each wrapper counts one scan and one merge."""
+    d0, d1 = two_cards
+    n, m, k = 6000, 9, 500
+    a0 = _args(11, 2, 100, n, m, 16, metric, d0)
+    c0 = _coarse_args(12, 2, 100, n, m, 16, metric, d0)
+    with torch.cuda.device(d0):
+        want2 = TK.ash_score_topk_cuda(*a0, b=2, k=k, metric=metric)
+        want6 = TK.ash_score_coarse_topk_cuda(*c0, b=2, k=k, metric=metric)
+        a1 = [None if a is None else a.to(d1) for a in a0]
+        c1 = [None if a is None else a.to(d1) for a in c0]
+        assert torch.cuda.current_device() == 0
+        before = dict(TK.launch_counts)
+        got2 = TK.ash_score_topk_cuda(*a1, b=2, k=k, metric=metric)
+        got6 = TK.ash_score_coarse_topk_cuda(*c1, b=2, k=k, metric=metric)
+        torch.cuda.synchronize(d1)
+        assert torch.cuda.current_device() == 0
+    assert got2[0].device == d1 and got6[1].device == d1
+    for got, want in ((got2, want2), (got6, want6)):
+        assert torch.equal(got[0].cpu(), want[0].cpu())
+        assert torch.equal(got[1].cpu(), want[1].cpu())
+    for name in ("ash_score_topk", "ash_score_coarse_topk"):
+        assert TK.launch_counts[name] == before[name] + 1
+    assert TK.launch_counts["ash_topk_merge"] == before["ash_topk_merge"] + 2
+
+
+def test_sharded_one_shard_per_card_equals_flat(two_cards):
+    """A sharded index with one shard on each card: EQUAL to the flat
+    index on cuda:0 (fused, materializing and rerank routes)."""
+    devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    X = embedding_dataset(20008, 64, seed=3, device=devs[0])
+    X, Q = X[:20000], X[20000:]
+    flat = AshIndex.build(torch.Generator().manual_seed(1), X,
+                          ASHConfig(b=2, d=32, n_landmarks=16),
+                          learned=False, keep_raw=True, device=devs[0])
+    sh = AshIndex.from_parts(flat.model, flat.payload, backend="sharded",
+                             raw=flat._state.raw, mesh=devs)
+    assert [p.codes.device for p in sh._state.shards.payloads] == devs
+    for kw in (dict(k=10), dict(k=100), dict(k=300), dict(k=10, rerank=64)):
+        got, want = sh.search(Q, **kw), flat.search(Q, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

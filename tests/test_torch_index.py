@@ -162,9 +162,10 @@ def test_load_integrity_checks(data, tmp_path):
 
 
 def test_unported_plans_raise(data):
-    """Gathered and coarse plans run now; what is still refused: the
-    sharded and tiered backends, ``shortlist=`` without ``coarse=``, an
-    unknown coarse mode, and row masks on a gathered plan."""
+    """Gathered and coarse plans run, and so do the sharded and tiered
+    backends; what is refused: an unknown backend, ``shortlist=``
+    without ``coarse=``, an unknown coarse mode, and row masks on a
+    gathered plan."""
     X, _, Qm, _, _ = data
     ti = AshIndex.build(torch.Generator().manual_seed(0),
                         torch.from_numpy(X[:600]),
@@ -182,11 +183,18 @@ def test_unported_plans_raise(data):
                  TC.ScanPlan(metric="dot", k=3, rows=rows)):
         s, ids = TC.execute_plan(ti.model, prep, ti.payload, plan)
         assert s.shape == ids.shape == (10, plan.k)
+    with pytest.raises(ValueError, match="unknown backend"):
+        AshIndex.build(torch.Generator(), torch.from_numpy(X[:600]),
+                       ASHConfig(b=2, d=8), backend="hnsw", device="cpu")
     for backend in ("sharded", "tiered_ivf"):
-        with pytest.raises(ValueError, match="unknown backend"):
-            AshIndex.build(torch.Generator(), torch.from_numpy(X[:600]),
-                           ASHConfig(b=2, d=8), backend=backend,
-                           device="cpu")
+        built = AshIndex.build(torch.Generator().manual_seed(0),
+                               torch.from_numpy(X[:600]),
+                               ASHConfig(b=2, d=8, n_landmarks=4),
+                               backend=backend, device="cpu")
+        assert built.backend == backend and built.n == 600
+        assert built.model.device.type == "cpu"
+        s, ids = built.search(torch.from_numpy(Qm), k=5)
+        assert s.shape == ids.shape == (10, 5) and bool((ids >= 0).all())
 
 
 @pytest.mark.parametrize("metric", METRICS)
