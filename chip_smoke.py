@@ -146,9 +146,44 @@ for exact rerank.  Phases, one line each:
      over it (tickets EQUAL to direct search, a ``tier`` gauge, cold
      lists billed at ``page_row_cost``); paged bytes a request, p50
      against HBM IVF at each budget, and the batched copy's GB/s
-     against a plain pinned copy of the same bytes.
+     against a plain pinned copy of the same bytes;
+  16. durability (``repro_torch.serving.wal``, run after phase 15) over
+     fresh copies of phase 3's model and payload: 16a the reference's
+     crash matrix (every registered fault point at its first hit, the
+     WAL and engine points also at their third, two torn appends) for
+     flat and IVF at the first 10^5 rows, an undriven engine,
+     ``fsync="always"`` and a checkpoint mid-traffic, each recovered
+     with ``DurableIndex.open`` onto the card: every acknowledged seqno
+     inside the durable prefix, searches (kernels 2, 1, 6 -> 4, 5 -> 3
+     flat; 4 and 3 IVF) EQUAL to the durable prefix applied one
+     mutation at a time on the card; 16b the full 10^6-row flat and IVF
+     indexes under a log with a ``ServingFrontend``, a
+     ``BackgroundCompactor`` (auto_compact 0.0003) and 8 client threads
+     mixing 8-query searches with 8-row adds and deletes (about 200
+     mutations; at least one compactor checkpoint), then a crash at
+     ``engine.apply.logged`` and recovery, EQUAL to the serial replay of
+     every logged mutation in seqno order; the same cycle with fewer
+     mutations for 4 logical shards on the card and ``tiered_ivf`` at
+     64 MiB; checkpoint seconds and GB/s, ``open``'s load and replay
+     seconds, records replayed a second (a tail of 20 mutations after the
+     traffic is replayed at least), append p50/p99 under each fsync
+     policy, engine QPS at C = 32 with and without a log (interval);
+  17. the launcher, ``python -m repro_torch.launch.serve``, as child
+     processes: 17a a WAL run (IVF, n = 10^6, 10 % mutations,
+     ``fsync="always"``) printing its ``[wal]``, ``[serve]``,
+     ``[latency]``, ``[mutations]`` and ``[checkpoint]`` lines; 17b the
+     same over the same directory, whose ``[recovery]`` replays nothing
+     past 17a's final checkpoint; 17c flat at n = 10^6 with
+     ``--save-dir``, its printed recall equal to direct searches of the
+     saved index; 17d ``--http`` on a free loopback port, ``POST
+     /search`` ids EQUAL to a direct search, ``GET /stats``, and SIGINT
+     ending it with exit 0 and its report; 17e ``--concurrent 32
+     --auto-compact 0.2 --mutate-fraction 0.1``, ``--engine sharded`` and
+     ``--tiered --hot-bytes 67108864`` at the CLI's default n = 10^5.
 
-The kernels line's launches add those of phases 14-15's own searches.
+The kernels line's launches add those of phases 14-15's own searches,
+phase 16's engine traffic and recovered-index searches, and the launches
+phase 17's launcher processes print.
 Any failed check raises; the script exits 0 only when every phase
 passed.  The last line is ``{"ok": true, "device": {...}}``.  Detailed
 results go to ``chiprun_out/chip_smoke.json``.
@@ -1809,6 +1844,580 @@ def tiered_phase(results, ivf, queries, tally):
                      if k not in ("engine",)})
 
 
+# -- durability and the launcher (phases 16, 17) ----------------------------
+# phase 3's model and payload under a write-ahead log: crashes at every
+# fault point (16a), full-size traffic with background checkpoints and
+# recovery on the card (16b); then the serving launcher as child
+# processes (17)
+DUR_ROWS = 100_000  # 16a: the crash matrix's index rows
+DUR_CLIENTS, DUR_ITERS = 8, 50  # 16b: threads, iterations each
+DUR_MUT_P = 0.5  # 16b: a mutation after every other search (~200)
+DUR_SMALL_ITERS = 10  # 16b: sharded and tiered cycles
+DUR_COMPACT = 0.0003  # 16b: ~300 dead rows trigger a compaction
+DUR_TAIL = 20  # 16b: mutations after the traffic, replayed by recovery
+DUR_HOT = 64 << 20  # 16b: the tiered cycle's hot set
+DUR_SHARDS = 4
+DUR_APPENDS = 200  # 16b: timed appends a fsync policy
+DUR_QPS_CLIENTS, DUR_QPS_ITERS = 32, 40  # 16b: engine QPS with/without log
+SERVE_N, SERVE_SMALL_N = 1_000_000, 100_000  # 17a-d; 17e
+SERVE_TIMEOUT = 300  # seconds a launcher run may take
+SERVE_DEVICE = "cuda"
+
+
+def _crash_cases(faults, points):
+    """The reference's crash matrix: every point at its first hit, the
+    WAL and engine points also at their third, two torn appends."""
+    cases = []
+    for name in sorted(points):
+        cases.append((name, faults.Crash(at=1)))
+        if name.startswith(("wal.", "engine.")):
+            cases.append((name, faults.Crash(at=3)))
+    cases.append(("wal.append", faults.Torn(at=2, fraction=0.3)))
+    cases.append(("wal.append", faults.Torn(at=4, fraction=0.8)))
+    return cases
+
+
+def _dur_routes(backend):
+    """Searches that hold a recovered index: kernels 2, 1, 6 -> 4 and
+    5 -> 3 on the flat placements, 4 and 3 on the IVF ones."""
+    if backend in ("ivf", "tiered_ivf"):
+        return (dict(k=K, nprobe=NPROBE),
+                dict(k=10, nprobe=NPROBE, rerank=RERANK))
+    return (dict(k=K), dict(k=10, rerank=RERANK), dict(k=10, coarse="int8"),
+            dict(k=10, coarse="int8", rerank=RERANK))
+
+
+def _replay(idx, muts):
+    """Apply ``muts`` one at a time (the serial replay): ("add", rows,
+    logged ids or None) or ("del", ids)."""
+    for m in muts:
+        if m[0] == "add":
+            got = idx.stage_add(m[1])
+            check(m[2] is None or bool((got == m[2]).all()),
+                  "serial replay assigned other ids than the log")
+            idx.apply_pending()
+        else:
+            idx.delete(m[1])
+    return idx
+
+
+def _dur_drive(durable, eng, pool, faults, plan, n0, steps=8):
+    """The reference's crash script on an undriven engine: 8 mutations
+    (55 % 8-row adds of pool rows, else 4-id deletes), a checkpoint
+    before the fifth.  (muts, acked, crashed)."""
+    import numpy as np
+
+    rng = np.random.RandomState(1234)
+    muts, acked, crashed = [], [], False
+    try:
+        with faults.active(plan):
+            for step in range(steps):
+                if step == steps // 2:
+                    durable.checkpoint(barrier=eng.mutation_barrier())
+                total = n0 + 8 * sum(1 for m in muts if m[0] == "add")
+                if rng.rand() < 0.55:
+                    rows = pool[rng.randint(0, len(pool), 8)]
+                    muts.append(("add", rows, None))
+                    t = eng.submit_add(rows)
+                else:
+                    victims = rng.randint(0, total, 4)
+                    muts.append(("del", victims))
+                    t = eng.submit_delete(victims)
+                t.result()
+                acked.append((len(muts) - 1, t))
+    except faults.SimulatedCrash:
+        crashed = True
+    durable.wal.close()
+    return muts, acked, crashed
+
+
+def durability_phase(results, index, queries, tally):
+    """Phase 16: phase 3's model and payload under a write-ahead log on
+    the card; every recovery EQUAL to the serial replay of its durable
+    prefix."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.types import ASHPayload
+    from repro_torch.index import AshIndex
+    from repro_torch.serving import (
+        BackgroundCompactor, DurableIndex, QueryEngine, ServingFrontend,
+        WriteAheadLog,
+    )
+    from repro_torch.testing import faults
+
+    t_phase = time.perf_counter()
+    out = {}
+    model, payload, raw = index.model, index.payload, index._state.raw
+    dev = model.device
+    pool = queries.cpu().numpy()  # rows the adds ingest
+    q8 = queries[:REQ_M]
+    points = {p.name for p in faults.points()}
+    check(len(points) == 11, f"fault points {sorted(points)}")
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="ash-durability-"))
+
+    def copy_of(backend, n=None, **opts):
+        """A fresh index over phase 3's model and (the first n rows
+        of) its payload: new state objects over shared tensors."""
+        p, r = payload, raw
+        if n is not None:
+            p = ASHPayload(b=payload.b, d=payload.d, **{
+                f: getattr(payload, f)[:n] for f in ASHPayload.ARRAY_FIELDS})
+            r = raw[:n]
+        return AshIndex.from_parts(model, p, backend=backend, raw=r, **opts)
+
+    def equal(rec, twin, backend):
+        return all(_eq(tally.run(rec.search, q8, **kw), twin.search(q8, **kw))
+                   for kw in _dur_routes(backend))
+
+    try:
+        # -- 16a: the crash matrix at the first 10^5 rows -----------------
+        t0 = time.perf_counter()
+        matrix = []
+        for backend in ("flat", "ivf"):
+            for point, action in _crash_cases(faults, points):
+                root = tmp / f"a{len(matrix)}"
+                idx = copy_of(backend, DUR_ROWS)
+                dur = DurableIndex.create(idx, root, fsync="always")
+                eng = QueryEngine(idx)
+                eng.attach_durability(dur)
+                muts, acked, crashed = _dur_drive(
+                    dur, eng, pool, faults, {point: action}, DUR_ROWS)
+                rec = DurableIndex.open(root, fsync="always",
+                                        index_opts={"device": dev})
+                n_dur = rec.report.last_seqno
+                case = f"{backend} {point} {type(action).__name__}@{action.at}"
+                check(crashed or n_dur == len(muts),
+                      f"{case}: clean run lost records")
+                check(all(t.wal_seqno == pos + 1 <= n_dur
+                          for pos, t in acked),
+                      f"{case}: an acknowledged mutation is outside the "
+                      f"durable prefix ({n_dur})")
+                twin = _replay(copy_of(backend, DUR_ROWS), muts[:n_dur])
+                check(equal(rec.index, twin, backend),
+                      f"{case}: recovery differs from the serial replay")
+                rec.close()
+                matrix.append(dict(backend=backend, point=point,
+                                   action=f"{type(action).__name__}"
+                                          f"@{action.at}",
+                                   crashed=crashed, acked=len(acked),
+                                   durable=n_dur,
+                                   replayed=rec.report.replayed_adds
+                                   + rec.report.replayed_deletes))
+                shutil.rmtree(root)
+        out["16a"] = dict(cases=len(matrix), seconds=time.perf_counter() - t0,
+                          crashed=sum(c["crashed"] for c in matrix),
+                          matrix=matrix)
+        log("durability_matrix", cases=len(matrix),
+            crashed=out["16a"]["crashed"], seconds=out["16a"]["seconds"])
+
+        # -- 16b: full size, concurrent traffic, recovery -----------------
+        def cycle(name, backend, iters, load_opts=None, **opts):
+            root = tmp / f"b-{name}"
+            idx = copy_of(backend, **opts)
+            dur, t_create = sync_time(DurableIndex.create, idx, root,
+                                      fsync="interval")
+            ckpt0 = sum(f.stat().st_size for f in root.glob("ckpt-*/*"))
+            eng = QueryEngine(idx, batch_buckets=(8, 32, 128),
+                              k_buckets=(10, 100), auto_compact=DUR_COMPACT)
+            eng.attach_durability(dur)
+            comp = BackgroundCompactor(eng).start()
+            log_lock, tickets, errors = threading.Lock(), [], []
+            route = _dur_routes(backend)[0]
+
+            def client(c):
+                rng = np.random.RandomState(100 + c)
+                try:
+                    for _ in range(iters):
+                        o = rng.randint(0, len(pool) - REQ_M)
+                        fe.search(pool[o:o + REQ_M], timeout=120.0, **route)
+                        if rng.rand() >= DUR_MUT_P:
+                            continue
+                        if rng.rand() < 0.5:
+                            rows = pool[rng.randint(0, len(pool), 8)]
+                            t, m = fe.submit_add(rows), ["add", rows]
+                        else:
+                            ids = rng.randint(0, idx.next_id, 8)
+                            t, m = fe.submit_delete(ids), ["del", ids]
+                        t.result(120.0)
+                        with log_lock:
+                            tickets.append((t, m))
+                except Exception as e:  # recorded, then failed below
+                    errors.append(repr(e))
+
+            def traffic():
+                nonlocal fe
+                with ServingFrontend(eng) as fe:
+                    _run_threads(DUR_CLIENTS, client)
+                check(comp.wait_idle(300.0), f"{name}: compactor busy")
+                comp.stop()
+
+            fe = None
+            _, t_traffic = sync_time(tally.run, traffic)
+            check(not errors, f"{name}: client failed: {errors[:2]}")
+            # a tail of mutations past the last checkpoint, so that
+            # recovery replays at least DUR_TAIL + 1 records
+            rng = np.random.RandomState(7)
+            for j in range(DUR_TAIL):
+                if j % 2 == 0:
+                    m = ["add", pool[rng.randint(0, len(pool), 8)]]
+                    t = eng.submit_add(m[1])
+                else:
+                    m = ["del", rng.randint(0, idx.next_id, 8)]
+                    t = eng.submit_delete(m[1])
+                t.result()
+                tickets.append((t, m))
+            stats = dur.stats()
+            # one more add: logged, then the process dies before it
+            # applies (its ticket never resolves)
+            crash_rows = pool[:8]
+            with faults.active({"engine.apply.logged": faults.Crash(at=1)}):
+                tc = eng.submit_add(crash_rows)
+                try:
+                    tc.result()
+                    crashed = False
+                except faults.SimulatedCrash:
+                    crashed = True
+            check(crashed and tc.wal_seqno is not None,
+                  f"{name}: the crash did not fire after logging")
+            dur.wal.close()
+            del eng, comp, idx, dur
+            torch.cuda.synchronize()
+            rec, t_open = sync_time(DurableIndex.open, root,
+                                    index_opts={"device": dev,
+                                                **(load_opts or {})})
+            rep = rec.report
+            check(rep.last_seqno == tc.wal_seqno,
+                  f"{name}: recovered through {rep.last_seqno}, logged "
+                  f"{tc.wal_seqno}")
+            check(rep.checkpoint_seqno == stats["checkpoint_seqno"],
+                  f"{name}: recovered from checkpoint "
+                  f"{rep.checkpoint_seqno}, last written "
+                  f"{stats['checkpoint_seqno']}")
+            # the serial replay: every logged mutation in seqno order
+            log_order = sorted(
+                [(t.wal_seqno, m[0], m[1], t.ids) for t, m in tickets]
+                + [(tc.wal_seqno, "add", crash_rows, tc.ids)],
+                key=lambda r: r[0])
+            muts = [(k, a, ids) if k == "add" else (k, a)
+                    for _, k, a, ids in log_order]
+            twin, t_twin = sync_time(
+                lambda: _replay(copy_of(backend, **opts), muts))
+            same = equal(rec.index, twin, backend)
+            check(same, f"{name}: recovery differs from the serial replay")
+            n_rec = rep.replayed_adds + rep.replayed_deletes
+            res = dict(
+                backend=backend, mutations=len(tickets) + 1,
+                records=int(tc.wal_seqno), traffic_s=t_traffic,
+                create_s=t_create, checkpoint0_gb=ckpt0 / 1e9,
+                checkpoint0_gb_s=ckpt0 / 1e9 / t_create,
+                checkpoints=stats["checkpoints"],
+                checkpoint_seqno=rep.checkpoint_seqno,
+                replayed_adds=rep.replayed_adds,
+                replayed_deletes=rep.replayed_deletes,
+                open_s=t_open, load_s=rep.load_s, replay_s=rep.replay_s,
+                records_per_s=n_rec / max(rep.replay_s, 1e-9),
+                serial_replay_s=t_twin, equal=same)
+            rec.close()
+            del rec, twin
+            torch.cuda.empty_cache()
+            shutil.rmtree(root)
+            log("durability_cycle", name=name, **res)
+            return res
+
+        cycles = {
+            "flat": cycle("flat", "flat", DUR_ITERS),
+            "ivf": cycle("ivf", "ivf", DUR_ITERS),
+            "sharded": cycle("sharded", "sharded", DUR_SMALL_ITERS,
+                             load_opts=dict(mesh=[dev] * DUR_SHARDS),
+                             mesh=[dev] * DUR_SHARDS),
+            "tiered_ivf": cycle("tiered_ivf", "tiered_ivf", DUR_SMALL_ITERS,
+                                load_opts=dict(hot_bytes=DUR_HOT),
+                                hot_bytes=DUR_HOT),
+        }
+        for name in ("flat", "ivf"):
+            check(cycles[name]["checkpoints"] >= 2,
+                  f"{name}: no compactor checkpoint during the traffic")
+        out["16b"] = cycles
+
+        # a timed checkpoint of the full flat index (the bytes a
+        # card-resident index copies to the host and writes)
+        root = tmp / "timed"
+        idx = copy_of("flat")
+        dur = DurableIndex.create(idx, root, fsync="interval")
+        idx.delete([0])  # one logged mutation: the next checkpoint writes
+        dur.log_delete([0])
+        _, t_ckpt = sync_time(dur.checkpoint)
+        nbytes = sum(f.stat().st_size
+                     for f in (root / f"ckpt-{1:020d}").glob("*"))
+        check(nbytes > 0, "the timed checkpoint wrote nothing")
+        dur.close()
+        shutil.rmtree(root)
+        out["checkpoint"] = dict(seconds=t_ckpt, gb=nbytes / 1e9,
+                                 gb_s=nbytes / 1e9 / t_ckpt)
+
+        # append latency of one 8-row add record under each fsync policy
+        appends = {}
+        rows8 = pool[:8]
+        for policy in ("always", "interval", "off"):
+            wal = WriteAheadLog(tmp / f"wal-{policy}", fsync=policy)
+            lat = []
+            for i in range(DUR_APPENDS):
+                t0 = time.perf_counter()
+                wal.append_add(rows8, np.arange(8 * i, 8 * i + 8))
+                lat.append((time.perf_counter() - t0) * 1e3)
+            appends[policy] = dict(p50_ms=pct(lat, 50), p99_ms=pct(lat, 99),
+                                   fsyncs=wal.stats()["fsyncs"])
+            wal.close()
+        out["append"] = appends
+
+        # engine QPS at C = 32 with and without a log, same traffic
+        def engine_qps(with_log):
+            idx = copy_of("flat")
+            eng = QueryEngine(idx, batch_buckets=(8, 32, 128),
+                              k_buckets=(10, 100))
+            dur = None
+            if with_log:
+                dur = DurableIndex.create(idx, tmp / "qps", fsync="interval")
+                eng.attach_durability(dur)
+            errors = []
+
+            def client(c):
+                rng = np.random.RandomState(500 + c)
+                try:
+                    for _ in range(DUR_QPS_ITERS):
+                        o = rng.randint(0, len(pool) - REQ_M)
+                        fe.search(pool[o:o + REQ_M], k=10, timeout=120.0)
+                        if rng.rand() < 0.1:
+                            fe.submit_add(pool[o:o + 8]).result(120.0)
+                        elif rng.rand() < 0.1:
+                            fe.submit_delete(
+                                rng.randint(0, N, 8)).result(120.0)
+                except Exception as e:  # recorded, then failed below
+                    errors.append(repr(e))
+
+            with ServingFrontend(eng) as fe:
+                wall = _run_threads(DUR_QPS_CLIENTS, client)
+            check(not errors, f"QPS client failed: {errors[:2]}")
+            if dur is not None:
+                dur.close()
+                shutil.rmtree(tmp / "qps")
+            return DUR_QPS_CLIENTS * DUR_QPS_ITERS * REQ_M / wall
+
+        engine_qps(False)  # warm-up: bucket shapes, allocator
+        qps = [engine_qps(False), engine_qps(True), engine_qps(True),
+               engine_qps(False)]
+        out["engine_qps"] = dict(
+            clients=DUR_QPS_CLIENTS, without_log=[qps[0], qps[3]],
+            with_log_interval=[qps[1], qps[2]])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    results["durability"] = out
+    log("durability", **{k: v for k, v in out.items() if k not in ("16a",)})
+
+
+def _serve_cmd(args):
+    """(argv, env) of ``python -m repro_torch.launch.serve ARGS`` run
+    from this checkout's ``src``, unbuffered."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "PYTHONUNBUFFERED": "1"}
+    return [sys.executable, "-m", "repro_torch.launch.serve",
+            *map(str, args), "--device", SERVE_DEVICE], env
+
+
+def _serve_run(args, timeout=SERVE_TIMEOUT):
+    """The launcher in a child process: (exit code, stdout and stderr,
+    seconds, {tag: [stdout lines]})."""
+    cmd, env = _serve_cmd(args)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    return proc.returncode, proc.stdout + proc.stderr, \
+        time.perf_counter() - t0, _tags(proc.stdout)
+
+
+def _tags(stdout):
+    tags = {}
+    for ln in stdout.splitlines():
+        if ln.startswith("[") and "]" in ln:
+            tags.setdefault(ln[:ln.index("]") + 1], []).append(ln)
+    return tags
+
+
+def _serve_numbers(tags):
+    """QPS, p50/p99 ms, recall and kernel launches of a launcher run."""
+    import re
+
+    out = {}
+    m = re.search(r"\(([0-9.]+) QPS on ", " ".join(tags.get("[serve]", [])))
+    if m:
+        out["qps"] = float(m.group(1))
+    m = re.search(r"p50=([0-9.]+)ms p99=([0-9.]+)ms",
+                  " ".join(tags.get("[latency]", [])))
+    if m:
+        out["p50_ms"], out["p99_ms"] = float(m.group(1)), float(m.group(2))
+    m = re.search(r"10-recall@10=([0-9.]+) 10-recall@100=([0-9.]+)",
+                  " ".join(tags.get("[recall]", [])))
+    if m:
+        out["recall10"], out["recall100"] = m.group(1), m.group(2)
+    if "[launches]" in tags:
+        line = tags["[launches]"][-1]
+        out["launches"] = json.loads(line[len("[launches] "):
+                                          line.index(" (kernel")])
+    return out
+
+
+def launcher_phase(results, launches):
+    """Phase 17: ``python -m repro_torch.launch.serve`` on the card as
+    child processes: a WAL run and its recovery, recall and HTTP answers
+    against direct search of the saved index, and the concurrent,
+    sharded and tiered modes.  Adds each run's kernel launches to
+    ``launches``."""
+    import re
+    import signal
+    import socket
+    import tempfile
+    import threading
+    import urllib.request
+
+    import torch
+
+    from repro_torch.index import AshIndex, recall_curve
+    from repro_torch.index import metrics as MET
+    from repro_torch.launch import serve as SV
+
+    t_phase = time.perf_counter()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="ash-serve-"))
+    wal_dir, save_dir = tmp / "wal", tmp / "idx"
+    runs = {}
+
+    def run(name, args, need):
+        rc, text, secs, tags = _serve_run(args)
+        check(rc == 0, f"17{name}: exit {rc}: {text[-2000:]}")
+        missing = [t for t in need if t not in tags]
+        check(not missing, f"17{name}: no {missing} line: {text[-2000:]}")
+        nums = _serve_numbers(tags)
+        for k, v in nums.pop("launches", {}).items():
+            launches[k] = launches.get(k, 0) + v
+        runs[name] = dict(seconds=secs, **nums)
+        log("launcher", run=name, **runs[name])
+        return tags
+
+    big = ["--n", SERVE_N, "--dim", DIM, "--bits", 2, "--reduce", 2,
+           "--landmarks", 64, "--queries", 1000, "--req-batch", 8]
+    try:
+        # 17a/b: a WAL run over IVF with mutations, then its recovery
+        wal_args = big + ["--engine", "ivf", "--nprobe", NPROBE,
+                          "--mutate-fraction", 0.1, "--wal", wal_dir,
+                          "--fsync", "always"]
+        tags = run("a", wal_args, ("[wal]", "[serve]", "[latency]",
+                                   "[mutations]", "[checkpoint]"))
+        seq = int(re.search(r"seq=(\d+)", tags["[checkpoint]"][0]).group(1))
+        tags = run("b", wal_args, ("[recovery]", "[serve]", "[checkpoint]"))
+        m = re.search(r"checkpoint seq=(\d+) replayed=(\d+) adds/(\d+) dels",
+                      tags["[recovery]"][0])
+        check(m is not None and m.groups() == (str(seq), "0", "0"),
+              f"17b: recovery {tags['[recovery]'][0]!r} after a final "
+              f"checkpoint at seq={seq}")
+        runs["b"]["recovery"] = tags["[recovery]"][0]
+        # 17c: flat, recall against direct search of the saved index
+        flat_args = big + ["--engine", "flat", "--save-dir", save_dir]
+        tags = run("c", flat_args, ("[serve]", "[latency]", "[recall]",
+                                    "[save]"))
+        X, Q = SV.dataset(SERVE_N, DIM, 1000, 0, SERVE_DEVICE)
+        _, gt = MET.exact_topk(Q, X, k=10)
+        del X
+        saved = AshIndex.load(save_dir, device=SERVE_DEVICE)
+        ids = torch.cat([saved.search(Q[i:i + 8], k=100, nprobe=NPROBE)[1]
+                         for i in range(0, 1000, 8)])
+        rec = recall_curve(ids.cpu(), gt.cpu(), Rs=(10, 100))
+        direct = (f"{rec[10]:.4f}", f"{rec[100]:.4f}")
+        check((runs["c"]["recall10"], runs["c"]["recall100"]) == direct,
+              f"17c: printed recall {runs['c']} != direct search {direct}")
+        runs["c"]["direct_recall"] = direct
+        # 17d: the HTTP API, then SIGINT
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        cmd, env = _serve_cmd(flat_args + ["--http", port])
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        lines, ready = [], threading.Event()
+
+        def reader():
+            for ln in proc.stdout:
+                lines.append(ln)
+                if ln.startswith("[http] POST"):
+                    ready.set()
+
+        th = threading.Thread(target=reader, daemon=True)
+        th.start()
+        try:
+            check(ready.wait(SERVE_TIMEOUT),
+                  f"17d: the server did not start: {''.join(lines)[-2000:]}")
+            t_ready = time.perf_counter() - t0
+            url = f"http://127.0.0.1:{port}"
+            body = json.dumps({"queries": Q[:8].cpu().tolist(),
+                               "k": 10}).encode()
+            t1 = time.perf_counter()
+            with urllib.request.urlopen(urllib.request.Request(
+                    url + "/search", data=body,
+                    headers={"Content-Type": "application/json"}),
+                    timeout=60) as r:
+                got = json.loads(r.read())
+            t_post = time.perf_counter() - t1
+            _, want = saved.search(Q[:8], k=10)
+            http_equal = got["ids"] == want.cpu().tolist()
+            check(http_equal, "17d: POST /search ids differ from a direct "
+                              "search of the saved index")
+            with urllib.request.urlopen(url + "/stats", timeout=60) as r:
+                stats = json.loads(r.read())
+            check(stats.get("requests") == 1, f"17d: /stats {stats}")
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        th.join(30)
+        text = "".join(lines)
+        check(rc == 0 and "[engine]" in text,
+              f"17d: SIGINT exit {rc}: {text[-2000:]}")
+        for k, v in _serve_numbers(_tags(text)).get("launches", {}).items():
+            launches[k] = launches.get(k, 0) + v
+        runs["d"] = dict(seconds=time.perf_counter() - t0, ready_s=t_ready,
+                         post_ms=t_post * 1e3, ids_equal=http_equal,
+                         exit=rc)
+        log("launcher", run="d", **runs["d"])
+        del saved, Q, gt
+        torch.cuda.empty_cache()
+        # 17e: the concurrent, sharded and tiered modes
+        small = ["--n", SERVE_SMALL_N]
+        run("e_concurrent", small + ["--concurrent", 32, "--auto-compact",
+                                     0.2, "--mutate-fraction", 0.1],
+            ("[serve]", "[latency]", "[engine]"))
+        run("e_sharded", small + ["--engine", "sharded"],
+            ("[serve]", "[latency]", "[recall]"))
+        run("e_tiered", small + ["--tiered", "--hot-bytes", 64 << 20],
+            ("[serve]", "[latency]", "[recall]", "[tier]"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = dict(runs=runs, n=SERVE_N, n_17e=SERVE_SMALL_N,
+               phase_seconds=time.perf_counter() - t_phase)
+    results["launcher"] = out
+    log("launcher", phase_seconds=out["phase_seconds"])
+
+
 def main() -> int:
     import torch
 
@@ -2583,6 +3192,32 @@ def main() -> int:
         row["launches"] += row["index_launches"]
         if "merge_launches" in row:
             row["merge_launches"] += tally.merges.get(row["name"], 0)
+
+    # -- 16, 17. durability and the launcher --------------------------------
+    # counts are zeroed first; each kernel's launches add phase 16's
+    # engine traffic and recovered-index searches (_Tally; the serial
+    # replays they are held against are not counted) and the kernel
+    # launches that phase 17's launcher processes print
+    TK.reset_launch_counts()
+    dur_tally = _Tally()
+    durability_phase(results, index, queries, dur_tally)
+    for name in ("ash_score", "ash_score_topk", "ash_score_gather",
+                 "ash_score_gather_topk", "ash_score_coarse",
+                 "ash_score_coarse_topk", "ash_topk_merge"):
+        check(dur_tally.launches.get(name, 0) > 0,
+              f"phase 16 never launched {name}: {dur_tally.launches}")
+    serve_launches = {}
+    launcher_phase(results, serve_launches)
+    check(serve_launches.get("ash_score_topk", 0) > 0
+          and serve_launches.get("ash_score_gather_topk", 0) > 0,
+          f"phase 17's launchers launched {serve_launches}")
+    for row in rows:
+        row["durability_launches"] = dur_tally.launches.get(row["name"], 0)
+        row["launcher_launches"] = serve_launches.get(row["name"], 0)
+        row["launches"] += (row["durability_launches"]
+                            + row["launcher_launches"])
+        if "merge_launches" in row:
+            row["merge_launches"] += dur_tally.merges.get(row["name"], 0)
 
     rows.append(lm_phases(results, dev))
     results["kernels"] = rows

@@ -2,8 +2,9 @@
 
 ``embedding_dataset`` reproduces the paper's Table-4 non-isotropy:
 anisotropic covariance (power-law spectrum), non-zero mean and cluster
-structure.  Draws come from a ``torch.Generator`` seeded with ``seed``
-on the target device, so a million-row set is made on the card.
+structure; ``isotropy_diagnostics`` measures it.  Draws come from a
+``torch.Generator`` seeded with ``seed`` on the target device, so a
+million-row set is made on the card.
 """
 from __future__ import annotations
 
@@ -42,3 +43,16 @@ def embedding_dataset(
     if normalize:
         X /= torch.linalg.norm(X, dim=-1, keepdim=True)
     return X
+
+
+def isotropy_diagnostics(X: torch.Tensor, sample: int = 2048) -> dict:
+    """The paper's Table-4 statistics of ``X`` (on its device): min
+    pairwise cosSim over the first ``sample`` rows, and ||mean||_inf."""
+    full_fp32()
+    Xs = X[:sample].to(torch.float32)
+    Xn = Xs / torch.linalg.norm(Xs, dim=-1, keepdim=True)
+    cos = Xn @ Xn.T
+    return {
+        "min_cos_sim": float(cos.min()),
+        "mean_inf_norm": float(X.to(torch.float32).mean(0).abs().max()),
+    }

@@ -49,6 +49,7 @@ from repro_torch.index import common as C
 from repro_torch.index import distributed as DX
 from repro_torch.index import flat as F
 from repro_torch.index import ivf as IV
+from repro_torch.testing import faults
 
 FORMAT_VERSION = 1
 
@@ -110,6 +111,13 @@ def _decode_array(a: np.ndarray, tag: str, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+# crash points of an atomic save: before the fresh target's directory
+# rename, and between the two file renames of an over-save (new arrays
+# under the old manifest, which load() rolls forward)
+_FAULT_SAVE_REPLACE = faults.point("save.replace")
+_FAULT_SAVE_BETWEEN = faults.point("save.between_replace")
+
+
 def _fsync_dir(path: pathlib.Path) -> None:
     try:
         fd = os.open(path, os.O_RDONLY | getattr(os, "O_DIRECTORY", 0))
@@ -144,6 +152,7 @@ def _save_fresh(p: pathlib.Path, encoded, meta) -> None:
     _write_npz(tmp / "arrays.npz", encoded)
     _write_manifest(tmp / "config.json", meta)
     _fsync_dir(tmp)
+    faults.fire(_FAULT_SAVE_REPLACE)
     os.replace(tmp, p)
     _fsync_dir(p.parent)
 
@@ -153,6 +162,7 @@ def _save_over(p: pathlib.Path, encoded, meta) -> None:
     _write_manifest(p / "config.new.json", meta)
     _fsync_dir(p)
     os.replace(p / "arrays.new.npz", p / "arrays.npz")
+    faults.fire(_FAULT_SAVE_BETWEEN)
     os.replace(p / "config.new.json", p / "config.json")
     _fsync_dir(p)
 

@@ -10,9 +10,10 @@ POINTER SWAP on the serving path:
 1. **snapshot** — under the engine's per-index mutation barrier (so no
    search or mutation apply is mid-flight), record the index's
    ``mutation_epoch`` and take a shallow copy of its backend state.
-   Backend states are frozen dataclasses whose tensors no mutation
-   writes in place (add, delete and compact each return a new state),
-   so a shallow copy is a consistent snapshot.
+   No mutation writes a backend state's tensors in place: flat and
+   IVF return a new frozen state, sharded and tiered rebind attributes
+   of the live state object to new tensors, which a shallow copy does
+   not see — so a shallow copy is a consistent snapshot.
 2. **build** — OFF the lock, run the backend's ``compact`` on the
    snapshot: flat/IVF compaction is pure (returns a new state).
    Searches and mutations proceed concurrently against the live state
@@ -54,9 +55,9 @@ from typing import Optional
 from repro_torch.serving.engine import QueryEngine
 from repro_torch.testing import faults
 
-# the instant before the survivor state is installed: a failure here
-# loses the compaction (never a correctness event: the tombstones stay
-# masked) but must never corrupt anything
+# the instant before the survivor state is installed: a crash here
+# loses the compaction (never a correctness event — recovery replays
+# the WAL over the last checkpoint) but must never corrupt anything
 _FAULT_SWAP = faults.point("compactor.swap")
 
 
@@ -187,9 +188,11 @@ class BackgroundCompactor:
     def run_once(self, name: str = "default") -> bool:
         """One snapshot → build → epoch-checked swap cycle (with
         bounded retries).  Synchronous — tests and drain paths call it
-        directly.  True iff a survivor state was swapped in.  (The
-        reference then checkpoints an attached write-ahead log; that
-        comes with durability, ROADMAP item 10.)"""
+        directly.  True iff a survivor state was swapped in.  After a
+        successful swap, an attached :class:`DurableIndex` is
+        checkpointed (then its covered WAL segments dropped) so the
+        log stays bounded — the natural truncation point, since the
+        compacted state is exactly what replay would rebuild."""
         eng = self.engine
         barrier = eng.mutation_barrier(name)
         for attempt in range(self.max_retries + 1):
@@ -227,9 +230,22 @@ class BackgroundCompactor:
                         eng.stats.compact_blocked_ms += blocked_ms
                     swapped = True
             if swapped:
+                # checkpoint-then-truncate OFF the barrier (the
+                # checkpoint re-acquires it only for its brief
+                # snapshot+rotate step) so serving never waits on the
+                # checkpoint write
+                self._checkpoint_after_swap(name, barrier)
                 return True
             # stale build: a mutation landed mid-rebuild — retry from
             # a fresh snapshot (which includes the delta)
             with eng._lock:
                 eng.stats.compact_retries += 1
         return False
+
+    def _checkpoint_after_swap(self, name: str, barrier) -> None:
+        durable = self.engine.durability(name)
+        if durable is None:
+            return
+        with barrier:  # WAL appends are serialized by the barrier
+            durable.log_marker("compact")
+        durable.checkpoint(barrier=barrier)

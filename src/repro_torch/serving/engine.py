@@ -69,9 +69,10 @@ Mechanics:
   every query flush applies the mutations queued before it, any search
   observes exactly the mutations submitted before it — and results
   stay bit-identical to direct ``AshIndex.search`` on the
-  equivalently-mutated index.  (The write-ahead log that
-  ``repro.serving.wal`` attaches to this path comes with durability,
-  ROADMAP item 10.)
+  equivalently-mutated index.  With a ``serving.wal.DurableIndex``
+  attached (:meth:`QueryEngine.attach_durability`) the batch is
+  appended to the write-ahead log before the backend applies it and
+  before any of its tickets resolves.
 * **Results** — each fused call's (scores, ids) come to the host in
   one copy per field; tickets resolve to CPU tensors sliced from them.
 
@@ -134,9 +135,9 @@ NEG_INF = float("-inf")
 # _billed_list_sizes)
 _IVF_LIKE = ("ivf", "tiered_ivf")
 
-# failure windows of the mutation apply path: before anything happened,
-# before the backend applied the batch (where durability will log it),
-# and after the apply but before any ticket fired
+# crash-recovery windows of the mutation apply path: before anything
+# durable happened, after the WAL records exist but before the backend
+# applied them, and after the apply but before any ticket fired
 _FAULT_APPLY = faults.point("engine.apply")
 _FAULT_APPLY_LOGGED = faults.point("engine.apply.logged")
 _FAULT_APPLY_APPLIED = faults.point("engine.apply.applied")
@@ -370,6 +371,10 @@ class EngineStats:
     compact_failures: int = 0
     compact_consecutive_failures: int = 0
     compact_last_error: Optional[str] = None
+    # durability: WAL append failures surfaced by the apply path (the
+    # batch is requeued and retried, never silently dropped)
+    wal_failures: int = 0
+    wal_last_error: Optional[str] = None
     effective_nprobe: Dict[int, int] = dataclasses.field(
         default_factory=dict
     )
@@ -558,6 +563,12 @@ class MutationTicket(_EventTicket):
         self.t_enqueue = time.perf_counter()
         self.apply_s = 0.0  # duration of the whole batched apply step
         self.ids: Optional[np.ndarray] = None  # adds: assigned user ids
+        # durability: the WAL seqno this mutation was logged under
+        # (None until the apply path logs it; stays None without an
+        # attached DurableIndex).  _rows retains an add's host rows
+        # until they are logged, so a WAL record can carry the payload.
+        self.wal_seqno: Optional[int] = None
+        self._rows: Optional[np.ndarray] = None
 
     def result(self, timeout: Optional[float] = None):
         """Adds: the (n,) int64 user ids the rows received (also on
@@ -653,6 +664,9 @@ class QueryEngine:
         # set by BackgroundCompactor.attach(): auto_compact requests
         # route to the worker instead of compacting on this thread
         self._compactor = None
+        # per-index DurableIndex (attach_durability): the apply path
+        # WAL-logs every mutation batch before its tickets resolve
+        self._wals: Dict[str, Any] = {}
         self.stats = EngineStats()
         self.stats.gauges = self._live_gauges
         if isinstance(indexes, AshIndex):
@@ -691,12 +705,27 @@ class QueryEngine:
         return self
 
     def attach_durability(self, durable, *, index: str = "default"):
-        """The reference binds a write-ahead log here; the port has
-        none yet."""
-        raise NotImplementedError(
-            "durability (serving/wal.py, DurableIndex) is not ported "
-            "yet: ROADMAP queue 1 item 10"
-        )
+        """Bind a :class:`~repro_torch.serving.wal.DurableIndex` to
+        ``index``: from now on :meth:`_apply_mutations` appends every
+        mutation batch to its WAL *before* the batch's tickets resolve,
+        so an acknowledged mutation always survives a crash (modulo the
+        WAL's fsync policy).  ``durable`` must wrap the registered
+        index object — rebinding the name afterwards without a
+        matching re-attach is an error the next apply will surface."""
+        idx = self._require_index(index)
+        if durable.index is not idx:
+            raise ValueError(
+                f"durable.index is not the index registered as "
+                f"{index!r}; attach after register()"
+            )
+        with self._lock:
+            self._wals[index] = durable
+        return self
+
+    def durability(self, index: str = "default"):
+        """The attached :class:`DurableIndex` of ``index`` (or None)."""
+        with self._lock:
+            return self._wals.get(index)
 
     def index(self, name: str = "default") -> AshIndex:
         return self._indexes[name]
@@ -1136,6 +1165,7 @@ class QueryEngine:
             # staging mutates index state: serialize against in-flight
             # applies so id assignment stays in submission order
             ticket.ids = idx.stage_add(q)
+            ticket._rows = q  # retained until the apply path logs it
             with self._lock:
                 self._add_tickets.setdefault(index, []).append(ticket)
                 self._mutation_t0.setdefault(index, ticket.t_enqueue)
@@ -1200,12 +1230,18 @@ class QueryEngine:
             self._try_flush(self._apply_mutations, name)
 
     def _apply_mutations(self, name: str) -> int:
-        """Apply the index's queued mutation batch: ONE backend add for
-        every staged row, then the queued deletes (order-equivalent to
-        FIFO — delete targets are ids, which adds never disturb), then
-        an optional auto-compaction.  Returns rows added + removed.
-        (The reference logs the batch to its write-ahead log first;
-        that comes with durability, ROADMAP item 10.)"""
+        """Apply the index's queued mutation batch: WAL-log every
+        queued mutation (when durability is attached — the batch is
+        requeued intact if logging fails, so no acknowledged-but-
+        unlogged state can exist), then ONE backend add for every
+        staged row, then the queued deletes (order-equivalent to FIFO
+        — delete targets are ids, which adds never disturb), then an
+        optional auto-compaction.  Tickets fire only after their
+        records are in the log.  If the backend apply fails after the
+        records were logged, the tickets fail with that error although
+        their records stay in the log: a later recovery replays them,
+        so a failed ticket's mutation may still take effect (as in the
+        reference).  Returns rows added + removed."""
         with self.mutation_barrier(name):
             with self._lock:
                 idx = self._indexes.get(name)
@@ -1226,13 +1262,48 @@ class QueryEngine:
                 adds = self._add_tickets.pop(name, [])
                 dels = self._pending_deletes.pop(name, [])
                 self._mutation_t0.pop(name, None)
+                wal = self._wals.get(name)
             if not adds and not dels and idx.pending_rows == 0:
                 return 0
+            if wal is not None and (adds or dels):
+                try:
+                    # submission order: adds before deletes, matching
+                    # the apply below — replay is order-faithful.  A
+                    # ticket logged by an earlier, failed apply keeps
+                    # its seqno (idempotent retry, no double record).
+                    for ticket in adds:
+                        if ticket.wal_seqno is None:
+                            ticket.wal_seqno = wal.log_add(
+                                ticket._rows, ticket.ids
+                            )
+                        ticket._rows = None
+                    for del_ids, ticket in dels:
+                        if ticket.wal_seqno is None:
+                            ticket.wal_seqno = wal.log_delete(del_ids)
+                except Exception as e:
+                    # logging failed (disk full, ...): requeue the
+                    # whole batch for a later retry — tickets stay
+                    # unresolved rather than acknowledging work the
+                    # log does not hold
+                    with self._lock:
+                        self._add_tickets[name] = (
+                            adds + self._add_tickets.get(name, [])
+                        )
+                        self._pending_deletes[name] = (
+                            dels + self._pending_deletes.get(name, [])
+                        )
+                        pending = adds + [t for _, t in dels]
+                        self._mutation_t0[name] = min(
+                            t.t_enqueue for t in pending
+                        )
+                        self.stats.wal_failures += 1
+                        self.stats.wal_last_error = repr(e)
+                    raise
+            faults.fire(_FAULT_APPLY_LOGGED)
             t0 = time.perf_counter()
             try:
                 # the batch has left the queues: a failure from here on
                 # lands on its tickets
-                faults.fire(_FAULT_APPLY_LOGGED)
                 applied = idx.apply_pending()
                 removed = 0
                 for del_ids, ticket in dels:
@@ -1260,6 +1331,8 @@ class QueryEngine:
                     if idx.n != n_before:
                         with self._lock:
                             self.stats.compactions += 1
+                        if wal is not None:
+                            wal.log_marker("compact")
             dt = time.perf_counter() - t0
             for ticket in adds:
                 ticket._result = ticket.ids
@@ -1416,6 +1489,13 @@ class QueryEngine:
                     0.0 if oldest is None else round(age, 6)
                 ),
                 "queue_pressure": round(pressure, 4),
+                "durability": {
+                    "wal_failures": self.stats.wal_failures,
+                    "wal_last_error": self.stats.wal_last_error,
+                    "indexes": {
+                        nm: d.stats() for nm, d in self._wals.items()
+                    },
+                },
             }
             tier = {
                 nm: ix._backend.tier_stats(ix._state)

@@ -1,9 +1,9 @@
 """Fault-injection points of the serving stack.
 
 Counterpart of ``repro.testing.faults`` (the port keeps its own copy).
-The engine's mutation apply path and the background compactor's swap
-register their points here; the write-ahead log's and the atomic
-save's come with durability.
+The write-ahead log, checkpoints, the atomic save, the engine's
+mutation apply path and the background compactor's swap register
+their points here: the reference's 11.
 
 Production code declares *named points* at the instants that matter
 for crash recovery (just before a WAL write hits the file, between

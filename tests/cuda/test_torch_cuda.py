@@ -986,6 +986,84 @@ def test_engine_concurrent_submit_on_card(wide_indexes):
         assert torch.equal(s, ws.cpu()) and torch.equal(i, wi.cpu())
 
 
+# -- durability on the card -------------------------------------------------
+# A crash at ``engine.apply.logged`` mid-traffic, recovered onto the card:
+# searches EQUAL to the durable prefix applied one mutation at a time on
+# the card; a checkpoint whose save waits while another batch applies
+# holds none of it.
+
+
+@pytest.mark.parametrize("backend", ["flat", "ivf"])
+def test_crash_and_recover_on_card(wide_indexes, tmp_path, backend):
+    import threading
+    import time
+
+    from repro_torch.serving import DurableIndex, QueryEngine
+    from repro_torch.testing import faults
+
+    indexes, Q = wide_indexes
+    base = indexes[backend]
+    pool = embedding_dataset(64, 256, seed=5, device="cuda").cpu().numpy()
+    kw = dict(k=10, nprobe=8) if backend == "ivf" else dict(k=10)
+
+    def fresh():
+        return AshIndex.from_parts(base.model, base.payload, backend=backend,
+                                   raw=base._state.raw)
+
+    idx = fresh()
+    dur = DurableIndex.create(idx, tmp_path / "dur", fsync="always")
+    eng = QueryEngine(idx)
+    eng.attach_durability(dur)
+    script = [("add", pool[0:8]), ("del", [3, 9, 8001]), ("add", pool[8:16]),
+              ("del", [17, 8010]), ("add", pool[16:24])]
+    acked = []
+    with pytest.raises(faults.SimulatedCrash):
+        with faults.active({"engine.apply.logged": faults.Crash(at=5)}):
+            for i, (kind, arg) in enumerate(script):
+                if i == 2:
+                    dur.checkpoint(barrier=eng.mutation_barrier())
+                t = (eng.submit_add(arg) if kind == "add"
+                     else eng.submit_delete(arg))
+                t.result()
+                acked.append(t.wal_seqno)
+    dur.wal.close()
+    rec = DurableIndex.open(tmp_path / "dur", index_opts={"device": "cuda"})
+    assert rec.report.last_seqno == 5 and acked == [1, 2, 3, 4]
+    twin = fresh()
+    for kind, arg in script:
+        if kind == "add":
+            twin.stage_add(arg)
+            twin.apply_pending()
+        else:
+            twin.delete(arg)
+    for extra in ({}, {"rerank": 64}, {"coarse": "int8"}):
+        s, i = rec.index.search(Q[:16], **kw, **extra)
+        ws, wi = twin.search(Q[:16], **kw, **extra)
+        assert torch.equal(s, ws) and torch.equal(i, wi), extra
+    # a checkpoint whose save waits while a batch applies holds none of it
+    eng = QueryEngine(rec.index)
+    eng.attach_durability(rec)
+    n, dead = rec.index.n, rec.index.n_dead
+    seq = []
+    with faults.active({"ckpt.begin": faults.Delay(at=1, seconds=1.0)}):
+        th = threading.Thread(target=lambda: seq.append(
+            rec.checkpoint(barrier=eng.mutation_barrier())))
+        th.start()
+        while faults.hits("ckpt.begin") < 1:
+            time.sleep(0.002)
+        assert eng.submit_delete([0, 1]).result() == 2
+        eng.submit_add(pool[32:40]).result()
+        assert th.is_alive()
+        th.join(60.0)
+    ckpt = AshIndex.load(tmp_path / "dur" / f"ckpt-{seq[0]:020d}",
+                         device="cuda")
+    assert (ckpt.n, ckpt.n_dead) == (n, dead)
+    s, i = ckpt.search(Q[:16], **kw)
+    ws, wi = twin.search(Q[:16], **kw)
+    assert torch.equal(s, ws) and torch.equal(i, wi)
+    rec.close()
+
+
 # -- a second card: launches under the operands' device --------------------
 
 

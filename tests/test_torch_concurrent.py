@@ -360,9 +360,9 @@ def test_compactor_records_failures_and_health(setup):
 def test_fault_points_registered():
     names = {p.name for p in faults.points()}
     assert {"engine.apply", "engine.apply.logged", "engine.apply.applied",
-            "compactor.swap"} <= names
+            "compactor.swap", "wal.append", "save.replace"} <= names
     with pytest.raises(ValueError, match="unknown fault points"):
-        faults.install({"wal.append": faults.Error()})
+        faults.install({"wal.nowhere": faults.Error()})
 
 
 # ---------------------------------------------------------------------------

@@ -248,8 +248,10 @@ def test_port_never_imports_jax_or_reference():
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10 and files[-1].is_file()
     assert REPO / "src" / "repro_torch" / "index" / "ivf.py" in files
-    for mod in ("cache", "engine", "frontend", "compactor", "retrieval"):
+    for mod in ("cache", "engine", "frontend", "compactor", "retrieval",
+                "wal"):
         assert REPO / "src" / "repro_torch" / "serving" / f"{mod}.py" in files
+    assert REPO / "src" / "repro_torch" / "launch" / "serve.py" in files
     assert REPO / "src" / "repro_torch" / "testing" / "faults.py" in files
     for f in files:
         bad = _imports(f) & {"jax", "jaxlib", "repro"}

@@ -22,6 +22,8 @@
 
 Inputs are drawn from fixed numpy seeds; nothing is a hypothesis draw.
 """
+import types
+
 import numpy as np
 import pytest
 
@@ -383,8 +385,9 @@ def test_retrieval_serve_topk(data):
         assert _equal(got, want)
     with pytest.raises(NotImplementedError, match="13c"):
         retrieval.sasrec_retrieve({}, None, idx, None)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        retrieval.engine_for(idx).attach_durability(object())
+    with pytest.raises(ValueError, match="not the index"):
+        retrieval.engine_for(idx).attach_durability(
+            types.SimpleNamespace(index=None))
 
 
 # ---------------------------------------------------------------------------
