@@ -123,11 +123,14 @@ for exact rerank.  Phases, one line each:
      engine step in those flushes (a ``serving`` JSON line);
   14. phase 3's payload as ``backend="sharded"`` (run after phase 13),
      4 and 3 logical shards on the card (3 leave 2 pad rows): flat k=10
-     and k=100 (fused), rerank 256 and ``use_kernel=False``, dot and
-     l2, each EQUAL to the flat backend and a query alone EQUAL to its
-     batch row; coarse k=10 (and with rerank 256) EQUAL to flat coarse
-     searches of each shard's rows alone, merged; 1 % deleted, 1,000
-     rows added, compacted: EQUAL to a flat twin after each step;
+     and k=100 (fused) and ``use_kernel=False``, dot and l2, each EQUAL
+     to the flat backend, rerank 256 (reranked inside each shard, as the
+     reference) EQUAL to a merge of flat rerank searches of each shard's
+     rows alone with an exact score at every rank at least flat's, and
+     a query alone EQUAL to its batch row; coarse k=10 (and with rerank
+     256) EQUAL to flat coarse searches of each shard's rows alone,
+     merged; 1 % deleted, 1,000 rows added, compacted: EQUAL to a flat
+     twin after each step (rerank: to the twin's per-shard merge);
      exactly 4 kernel-2 scans, 4 merges under kernel 2 and 5 merge
      launches in all (the global one) per fused 4-shard request, read
      from ``ash_score.launch_counts`` and ``merge_launches``; a
@@ -179,11 +182,42 @@ for exact rerank.  Phases, one line each:
      /search`` ids EQUAL to a direct search, ``GET /stats``, and SIGINT
      ending it with exit 0 and its report; 17e ``--concurrent 32
      --auto-compact 0.2 --mutate-fraction 0.1``, ``--engine sharded`` and
-     ``--tiered --hot-bytes 67108864`` at the CLI's default n = 10^5.
+     ``--tiered --hot-bytes 67108864`` at the CLI's default n = 10^5;
+  18. the paper's baselines (``repro_torch.baselines``, run after phase
+     17) at about 256 code bits a vector on phase 3's rows, trained on
+     the card: ASH itself (phase 3's index, 294 bits), PQ (M = 32 x 8
+     bits), OPQ (2 iterations), LOPQ (C = 4, 2 local iterations; OPQ and
+     LOPQ trained on the first 10^5 rows, a printed cut, every row
+     encoded), EDEN and TurboQuant (b = 1), LeanVec (d = 64, b = 4) and
+     RaBitQ (b = 1, d = 256): bits, train and encode seconds, the ms of
+     an 8-query score + top-10 and 10-recall@10 over phase 6's 1,000
+     queries and exact top-10 (a ``baselines`` JSON line; the paper's
+     ordering reported, not gated); gates: PQ's ADC equal to <q,
+     decode(codes)> on 1,000 rows to 1e-3, EDEN's decode keeping each
+     row's norm to 1e-3, and RaBitQ through ``AshIndex.from_parts`` on
+     the card at b = 1, d = 256, C = 1 (kernel 1 within phase 4's bound
+     of its plain version, the fused k = 100 search within it of its
+     plain route, recall of fused k = 10 and of rerank 256 within 0.005
+     of the plain route);
+  19. granite-moe-3b (``repro_torch.configs.granite_moe_3b``, 32 layers,
+     d_model 1536, 40 experts top-8, d_head 64, bf16 seeded weights) in
+     the ``decode_32k_ashkv`` cell at batch 128 (cut to 64, printed with
+     the peak memory, only if it does not fit; run right after phase 2,
+     while the card's memory is empty): 19a kernel 7 at one layer (1,024
+     streams, G = 3, S = 32768, d = 64) against its plain version, with
+     time, bound and the SDPA yardstick; 19b 64 greedy ``decode_step``s
+     over 32704 positions (exactly 32 kernel-7 launches a step), p50/p99,
+     tokens/s, a profiled step and every layer's MoE block profiled
+     alone; 19c phase 12's fidelity at batch 4, cut to 128 tokens and
+     without the free-running plain route (a step costs ~165 ms of host
+     time), with the share of (token, layer) top-8 routings the kernel
+     route changes (prefill reported, not gated: capacity drops follow
+     the batch).
 
 The kernels line's launches add those of phases 14-15's own searches,
-phase 16's engine traffic and recovered-index searches, and the launches
-phase 17's launcher processes print.
+phase 16's engine traffic and recovered-index searches, the launches
+phase 17's launcher processes print, phase 18's RaBitQ searches and
+phase 19's decode steps (kernel 7's row also gives its granite shape).
 Any failed check raises; the script exits 0 only when every phase
 passed.  The last line is ``{"ok": true, "device": {...}}``.  Detailed
 results go to ``chiprun_out/chip_smoke.json``.
@@ -535,88 +569,42 @@ def profile_step(step, n_prof=2):
     )
 
 
-def lm_phases(results, dev):
-    """Phases 9-12; returns kernel 7's row of the ``kernels`` line."""
+def kv_layer_check(cfg, batch, dev, gen, plain_rows=None):
+    """Kernel 7 against its plain version at one layer of the decode
+    shape (``batch`` x KV streams, G query heads each, LM_MAX_LEN
+    positions of which the first LM_CONTEXT + 1 are valid), with its
+    time, bound, bound share and the SDPA yardstick.  ``plain_rows``:
+    batch rows per call of the plain version, whose fp32 K and V of a
+    whole layer need not fit at once."""
     import torch
 
-    from repro_torch.configs import llama32_3b as LC
     from repro_torch.core import quantization as Q
     from repro_torch.kernels import ash_kv_attn as KA
-    from repro_torch.kernels import ash_score as TK
     from repro_torch.kernels import ref
-    from repro_torch.models import transformer as TT
 
-    # -- 9. LM build ------------------------------------------------------
-    cfg = LC.ashkv_config()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    params, t_init = sync_time(TT.init_params, torch.Generator(
-        device=dev).manual_seed(0), cfg, device=dev)
-    cache, t_cache = sync_time(TT.init_cache, cfg, LM_BATCH, LM_MAX_LEN,
-                               device=dev)
-    n_params = sum(p.numel() for p in params.parameters())
-    kvq = params.kv_Wk.numel() + params.kv_Wv.numel()
-    check(n_params - kvq == cfg.param_count(), "parameter count")
-    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
-    c_bytes = {k: v.numel() * v.element_size() for k, v in cache.items()}
-    results["lm_build"] = dict(
-        config=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
-        kv_quant_bits=cfg.kv_quant_bits, code_dim=cfg.code_dim,
-        batch=LM_BATCH, max_len=LM_MAX_LEN, params=n_params,
-        weight_gb=w_bytes / 1e9, cache_gb=sum(c_bytes.values()) / 1e9,
-        cache_codes_gb=(c_bytes["k_codes"] + c_bytes["v_codes"]) / 1e9,
-        cache_scales_gb=(c_bytes["k_scale"] + c_bytes["v_scale"]) / 1e9,
-        init_s=t_init, cache_s=t_cache,
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    log("lm_build", **results["lm_build"])
-
-    # -- 10. kernel 7 against its plain version --------------------------
-    gen = torch.Generator(device=dev).manual_seed(10)
     b, dc = cfg.kv_quant_bits, cfg.code_dim
     KV, G = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-    main = kv_operands(gen, LM_BATCH, KV, LM_MAX_LEN, G, b, b, dc, dc, dev,
+    main = kv_operands(gen, batch, KV, LM_MAX_LEN, G, b, b, dc, dc, dev,
                        bias=False, scale_dtype=cfg.dtype, layer_layout=True)
     main["mask"] = torch.arange(LM_MAX_LEN, device=dev) <= LM_CONTEXT
-    got = kv_call(KA.ash_kv_attn_cuda, main, b, b)
-    want = kv_call(lambda *a, **kw: ref.ash_kv_attn_ref(
-        *a[:6], kw["b_k"], kw["b_v"], mask=a[6])[0], main, b, b)
-    ok_main, err_main = kv_close(got, want)
-    check(ok_main, f"kernel 7 at the decode shape: max |err| {err_main}")
-    del got, want
-    edges = []
-    for bk in (1, 2, 4, 8):
-        for bv in (1, 2, 4, 8):
-            edges.append(dict(bk=bk, bv=bv, N1=4, N2=8, S=1000, G=3,
-                              dk=128, dv=128, bias=True, mask_from=0))
-    # rows of 5 and 6 words: the kernel's 4-byte copy path
-    edges.append(dict(bk=4, bv=8, N1=3, N2=2, S=700, G=3, dk=40, dv=24,
-                      bias=True, mask_from=0))
-    for G_ in (1, 3, 8):
-        for S_, mf in ((77, 0), (4099, 700), (300, 200)):
-            for sd in (torch.float32, torch.bfloat16):
-                edges.append(dict(bk=4, bv=2, N1=5, N2=1, S=S_, G=G_, dk=96,
-                                  dv=64, bias=G_ != 3, mask_from=mf,
-                                  scale_dtype=sd))
-    edge_err, edge_ok = 0.0, []
-    for e in edges:
-        e = dict(e)
-        bk, bv = e.pop("bk"), e.pop("bv")
-        t = kv_operands(gen, e.pop("N1"), e.pop("N2"), e.pop("S"), e.pop("G"),
-                        bk, bv, e.pop("dk"), e.pop("dv"), dev, **e)
-        ok, err = kv_close(
-            kv_call(KA.ash_kv_attn_cuda, t, bk, bv),
-            kv_call(lambda *a, **kw: ref.ash_kv_attn_ref(
-                *a[:6], kw["b_k"], kw["b_v"], mask=a[6])[0], t, bk, bv))
-        edge_ok.append(ok)
-        edge_err = max(edge_err, err)
-    check(all(edge_ok), f"kernel 7 edge shapes: {edge_ok}")
-    # times at the decode shape: kernel, plain, and SDPA over
-    # pre-dequantized bf16 K and V (scales folded in) as the yardstick
+    rows = plain_rows or batch
+
+    def plain():
+        return torch.cat([ref.ash_kv_attn_ref(
+            main["q"][r:r + rows], main["kc"][r:r + rows],
+            main["ks"][r:r + rows], None, main["vc"][r:r + rows],
+            main["vs"][r:r + rows], b, b, mask=main["mask"])[0]
+            for r in range(0, batch, rows)])
+
+    ok_main, err_main = kv_close(kv_call(KA.ash_kv_attn_cuda, main, b, b),
+                                 plain())
+    check(ok_main, f"kernel 7 at the decode shape of {cfg.name}: "
+                   f"max |err| {err_main}")
+    # times: kernel, plain, and SDPA over pre-dequantized bf16 K and V
+    # (scales folded in) as the yardstick
     ms = event_ms(lambda: kv_call(KA.ash_kv_attn_cuda, main, b, b), iters=20)
-    plain_ms = event_ms(lambda: kv_call(lambda *a, **kw: ref.ash_kv_attn_ref(
-        *a[:6], kw["b_k"], kw["b_v"], mask=a[6])[0], main, b, b),
-        iters=2, warmup=1)
-    N, S = LM_BATCH * KV, LM_MAX_LEN
+    plain_ms = event_ms(plain, iters=2, warmup=1)
+    N, S = batch * KV, LM_MAX_LEN
     W = main["kc"].shape[-1]
     kv_bytes = (N * S * 2 * W * 4 + N * S * 2 * main["ks"].element_size()
                 + N * G * W * (32 // b) * 4 * 2 + S)
@@ -626,41 +614,63 @@ def lm_phases(results, dev):
           * main["ks"][..., None]).contiguous()  # (B, KV, S, dc)
     Vd = (Q.unpack_codes(main["vc"], dc, b).to(torch.bfloat16)
           * main["vs"][..., None]).contiguous()
-    qd = main["q"].reshape(LM_BATCH, KV * G, 1, dc).to(torch.bfloat16)
+    qd = main["q"].reshape(batch, KV * G, 1, dc).to(torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     mask4 = main["mask"][None, None, None, :]
     lib_ms = event_ms(lambda: sdpa(qd, Kd, Vd, attn_mask=mask4,
                                    enable_gqa=True), iters=10)
-    del Kd, Vd, qd
-    results["kv_kernel"] = dict(
+    del Kd, Vd, qd, main
+    torch.cuda.empty_cache()
+    return dict(
         shape=dict(streams=N, G=G, S=S, b=b, d_code=dc), max_abs_err=err_main,
-        edge_cases=len(edges), edge_max_abs_err=edge_err,
         splits=KA.split_geometry(N, S), ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, bound_bytes=kv_bytes,
-        library_ms=lib_ms, bound_share=bound_ms / ms,
-        ptxas=results["ptxas"]["ash_kv_attn_kernel"])
-    log("kv_kernel", **results["kv_kernel"])
-    del main
-    torch.cuda.empty_cache()
+        library_ms=lib_ms, bound_share=bound_ms / ms)
 
-    # -- 11. decode stream ------------------------------------------------
-    # layer 0's cache holds LM_CONTEXT encoded random K/V vectors, copied
-    # to every layer; then LM_STEPS greedy steps
-    gen = torch.Generator(device=dev).manual_seed(11)
+
+def fill_cache(params, cfg, cache, batch, dev, gen, chunk, block=None):
+    """Layer 0's first LM_CONTEXT positions: seeded random K/V encoded
+    (``_encode_kv``) ``chunk`` positions at a time, over the first
+    ``block`` positions (all when None) and copied along the rest; then
+    layer 0 copied to every layer.  Returns the seconds taken."""
+    import torch
+
+    from repro_torch.models import transformer as TT
+
+    b, KV = cfg.kv_quant_bits, cfg.n_kv_heads
+    span = block or LM_CONTEXT
     t0 = time.perf_counter()
     for name, Wp in (("k", params.kv_Wk[0]), ("v", params.kv_Wv[0])):
-        for s0 in range(0, LM_CONTEXT, FILL_POSITIONS):
-            s1 = min(LM_CONTEXT, s0 + FILL_POSITIONS)
-            vec = torch.randn(LM_BATCH, s1 - s0, KV, cfg.head_dim,
+        codes_l, scale_l = cache[f"{name}_codes"][0], cache[f"{name}_scale"][0]
+        for s0 in range(0, span, chunk):
+            s1 = min(span, s0 + chunk)
+            vec = torch.randn(batch, s1 - s0, KV, cfg.head_dim,
                               generator=gen, device=dev).to(cfg.dtype)
             codes, sc = TT._encode_kv(Wp, vec, b)
-            cache[f"{name}_codes"][0, :, s0:s1] = codes
-            cache[f"{name}_scale"][0, :, s0:s1] = sc.to(cfg.dtype)
+            codes_l[:, s0:s1] = codes
+            scale_l[:, s0:s1] = sc.to(cfg.dtype)
+        for s0 in range(span, LM_CONTEXT, span):
+            s1 = min(LM_CONTEXT, s0 + span)
+            codes_l[:, s0:s1] = codes_l[:, :s1 - s0]
+            scale_l[:, s0:s1] = scale_l[:, :s1 - s0]
     for k_ in cache:
         cache[k_][1:] = cache[k_][0]
     torch.cuda.synchronize()
-    fill_s = time.perf_counter() - t0
-    tokens = torch.randint(0, cfg.vocab, (LM_BATCH,), generator=gen,
+    return time.perf_counter() - t0
+
+
+def decode_stream(params, cfg, cache, batch, dev, gen):
+    """LM_STEPS greedy ``decode_step``s after LM_CONTEXT positions,
+    counts zeroed just before (exactly ``n_layers`` kernel-7 launches a
+    step), then a profile of one step (the cache at its last length).
+    Returns (results, kernel-7 launches, profile)."""
+    import torch
+
+    from repro_torch.kernels import ash_kv_attn as KA
+    from repro_torch.kernels import ash_score as TK
+    from repro_torch.models import transformer as TT
+
+    tokens = torch.randint(0, cfg.vocab, (batch,), generator=gen,
                            device=dev)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -684,43 +694,57 @@ def lm_phases(results, dev):
     check(launches["ash_kv_attn"] == cfg.n_layers * LM_STEPS,
           f"kernel 7 launches {launches['ash_kv_attn']} over {LM_STEPS} "
           f"steps of {cfg.n_layers} layers")
-    check(finite and logits.shape == (LM_BATCH, cfg.vocab),
+    check(finite and logits.shape == (batch, cfg.vocab),
           "decode logits not finite or misshapen")
-    results["decode"] = dict(
-        batch=LM_BATCH, context=LM_CONTEXT, steps=LM_STEPS, fill_s=fill_s,
+    res = dict(
+        config=cfg.name, batch=batch, context=LM_CONTEXT, steps=LM_STEPS,
         p50_ms=pct(lat, 50), p99_ms=pct(lat, 99),
-        mean_ms=sum(lat) / len(lat), tokens_per_s=LM_BATCH * LM_STEPS / wall,
+        mean_ms=sum(lat) / len(lat), tokens_per_s=batch * LM_STEPS / wall,
         kernel7_launches=launches["ash_kv_attn"],
         kernel7_launches_per_step=launches["ash_kv_attn"] / LM_STEPS,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    log("decode", **results["decode"])
-    # 11b. where a decode step's time goes (the cache at its last length)
-    results["profile_decode_step"] = profile_step(
+    prof = profile_step(
         lambda: TT.decode_step(params, cache, tokens, LM_CONTEXT + LM_STEPS
                                - 1, cfg))
-    log("profile_decode", **results["profile_decode_step"])
-    del cache
-    torch.cuda.empty_cache()
+    return res, launches["ash_kv_attn"], prof
 
-    # -- 12. fidelity and prefill ------------------------------------------
+
+def fidelity(params, cfg, dev, gen, tokens=FID_LEN, free=True):
+    """Decode fidelity at FID_BATCH over ``tokens`` teacher-forced tokens
+    (phases 12, 19c): every kernel-7 call of the kernel route against its
+    plain version on the same operands; the kernel route's logits
+    against the plain route run from the kernel route's cache before
+    each step, held to twice the noise floor of an fp32-sized jitter of
+    the attention output; the plain route run free (``free``) and the
+    bf16 cache (reported); ``prefill`` against the bf16 cache's last
+    step (gated for a dense model; for MoE reported, as the reference's
+    own MoE tolerance there is 10x looser: capacity drops follow the
+    batch shape).  For MoE also the share of (token, layer) top-k
+    routings that differ from the same-cache plain route's."""
     import dataclasses as dc_
 
+    import torch
+
+    from repro_torch.kernels import ops as KO
+    from repro_torch.models import moe as TM
+    from repro_torch.models import transformer as TT
+
     cfg_e = dc_.replace(cfg, kv_quant_bits=0)
-    toks = torch.randint(0, cfg.vocab, (FID_BATCH, FID_LEN), generator=gen,
+    toks = torch.randint(0, cfg.vocab, (FID_BATCH, tokens), generator=gen,
                          device=dev)
     # routes: the ASH-KV kernel route; its plain route run from the
     # kernel route's own cache before each step (same history: the
     # kernel's one-step error); the plain route run free (its own cache:
     # the one-step errors compounded through 256 steps of re-encoded
     # K/V); the bf16 cache
-    caches = {"kernel": TT.init_cache(cfg, FID_BATCH, FID_LEN, device=dev),
-              "free": TT.init_cache(cfg, FID_BATCH, FID_LEN, device=dev),
-              "bf16": TT.init_cache(cfg_e, FID_BATCH, FID_LEN, device=dev)}
-    out = {k: [] for k in ("kernel", "same", "jitter", "free", "bf16")}
+    caches = {"kernel": TT.init_cache(cfg, FID_BATCH, tokens, device=dev),
+              "bf16": TT.init_cache(cfg_e, FID_BATCH, tokens, device=dev)}
+    if free:
+        caches["free"] = TT.init_cache(cfg, FID_BATCH, tokens, device=dev)
+    out = {k: [] for k in ("kernel", "same", "jitter", "bf16")
+           + (("free",) if free else ())}
     # on the kernel route every layer's kernel-7 call is also held to the
     # plain version on the same operands
-    from repro_torch.kernels import ops as KO
-
     op = KO.ash_kv_attention
     layer_check = dict(calls=0, max_abs_err=0.0, max_rel_err=0.0,
                        all_close=True)
@@ -740,8 +764,8 @@ def lm_phases(results, dev):
     # the noise floor of the logit comparison: the plain route from the
     # same cache with every attention output moved by a random +-2^-20
     # relative (8 fp32 ulps, the size of the kernel's own error on these
-    # operands), which the random 28-layer model amplifies as it does
-    # the kernel's
+    # operands), which the random model amplifies as it does the
+    # kernel's (with MoE, through the routings it flips too)
     jgen = torch.Generator(device=dev).manual_seed(12)
 
     def jittered(*args, **kw):
@@ -749,30 +773,41 @@ def lm_phases(results, dev):
         sign = torch.randint(0, 2, red.shape, generator=jgen, device=dev)
         return red * (1 + (2 * sign - 1) * 2.0**-20)
 
-    for t in range(FID_LEN):
+    # each route's top-k choices per (step, layer), as the router made them
+    routes = {"kernel": [], "same": [], "jitter": []}
+    route_of = [None]
+    router = TM.route
+
+    def recording(p, x, c):
+        out = router(p, x, c)
+        if route_of[0] is not None:
+            routes[route_of[0]].append(out[2])
+        return out
+
+    def step(name, cache, tok, t, c, attn=op, **kw):
+        route_of[0] = name if name in routes else None
+        KO.ash_kv_attention, TM.route = attn, recording
+        try:
+            return TT.decode_step(params, cache, tok, t, c, **kw)
+        finally:
+            KO.ash_kv_attention, TM.route = op, router
+
+    for t in range(tokens):
         tok = toks[:, t]
         snap = {k: v.clone() for k, v in caches["kernel"].items()}
-        out["same"].append(TT.decode_step(params, snap, tok, t, cfg,
-                                          use_kernel=False)[0])
+        out["same"].append(step("same", snap, tok, t, cfg,
+                                use_kernel=False)[0])
         snap = {k: v.clone() for k, v in caches["kernel"].items()}
-        KO.ash_kv_attention = jittered
-        try:
-            out["jitter"].append(TT.decode_step(params, snap, tok, t, cfg,
-                                                use_kernel=False)[0])
-        finally:
-            KO.ash_kv_attention = op
-        KO.ash_kv_attention = checked
-        try:
-            lg, caches["kernel"] = TT.decode_step(params, caches["kernel"],
-                                                  tok, t, cfg)
-        finally:
-            KO.ash_kv_attention = op
+        out["jitter"].append(step("jitter", snap, tok, t, cfg, jittered,
+                                  use_kernel=False)[0])
+        lg, caches["kernel"] = step("kernel", caches["kernel"], tok, t, cfg,
+                                    checked)
         out["kernel"].append(lg)
-        lg, caches["free"] = TT.decode_step(params, caches["free"], tok, t,
-                                            cfg, use_kernel=False)
-        out["free"].append(lg)
-        lg, caches["bf16"] = TT.decode_step(params, caches["bf16"], tok, t,
-                                            cfg_e)
+        if free:
+            lg, caches["free"] = step("free", caches["free"], tok, t, cfg,
+                                      use_kernel=False)
+            out["free"].append(lg)
+        lg, caches["bf16"] = step("bf16", caches["bf16"], tok, t, cfg_e)
         out["bf16"].append(lg)
     del caches, snap
     logits = {k: torch.stack(v) for k, v in out.items()}  # (T, B, V)
@@ -787,14 +822,24 @@ def lm_phases(results, dev):
         return float(torch.corrcoef(torch.stack([a.flatten(),
                                                  b.flatten()]))[0, 1])
 
+    def flips(name):
+        """Share of (token, layer) whose set of top-k experts differs
+        from the same-cache plain route's."""
+        if not routes[name]:
+            return None
+        a = torch.sort(torch.stack(routes[name]), dim=-1).values
+        b = torch.sort(torch.stack(routes["same"]), dim=-1).values
+        return float((a != b).any(dim=-1).float().mean())
+
     same_err, same_rel, same_top1 = agree(lk, logits["same"])
     jit_err, jit_rel, jit_top1 = agree(logits["jitter"], logits["same"])
-    free_err, free_rel, free_top1 = agree(lk, logits["free"])
+    free_err, free_rel, free_top1 = (agree(lk, logits["free"]) if free
+                                     else (None, None, None))
     _, _, ae_top1 = agree(lk, le)
     pre = TT.prefill(params, toks, cfg_e)
     pre_err, pre_rel, _ = agree(pre, le[-1])
-    results["fidelity"] = dict(
-        batch=FID_BATCH, tokens=FID_LEN,
+    fid = dict(
+        config=cfg.name, batch=FID_BATCH, tokens=tokens,
         layer_calls_checked=layer_check["calls"],
         layer_max_abs_err=layer_check["max_abs_err"],
         layer_max_rel_err=layer_check["max_rel_err"],
@@ -809,36 +854,145 @@ def lm_phases(results, dev):
         ashkv_vs_bf16_corr=corr(lk, le), ashkv_vs_bf16_top1=ae_top1,
         prefill_vs_decode_max_abs=pre_err, prefill_vs_decode_rel=pre_rel,
         prefill_vs_decode_corr=corr(pre, le[-1]),
+        routing_flip_share=flips("kernel"),
+        noise_floor_routing_flip_share=flips("jitter"),
         finite=bool(all(torch.isfinite(v).all() for v in logits.values())
                     and torch.isfinite(pre).all()))
-    log("fidelity", **results["fidelity"])
     # kernel 7 == its plain version on every layer's operands (the
     # tolerance of phase 10).  The logits of one step from the same cache
     # differ by more: fp32-sized differences flip bf16 roundings of
-    # activations, which move codes of the step's own K/V, and the random
-    # 28-layer model amplifies that.  So the logits are held to the noise
-    # floor: the kernel route's divergence from the plain route at most
-    # twice the jittered route's, its top-1 agreement at most 3 points
-    # below the jittered route's
-    fid = results["fidelity"]
+    # activations, which move codes of the step's own K/V (and top-k
+    # routings), and the random model amplifies that.  So the logits are
+    # held to the noise floor: the kernel route's divergence from the
+    # plain route at most twice the jittered route's, its top-1
+    # agreement at most 3 points below the jittered route's
     check(layer_check["all_close"] and layer_check["calls"]
-          == FID_LEN * cfg.n_layers, f"kernel 7 on decode operands: {fid}")
+          == tokens * cfg.n_layers, f"kernel 7 on decode operands: {fid}")
     check(same_rel <= 2 * jit_rel and same_top1 >= jit_top1 - 0.03,
           f"kernel route vs plain route, against the noise floor: {fid}")
-    check(fid["prefill_vs_decode_rel"] <= 0.1
-          and fid["prefill_vs_decode_corr"] >= 0.99,
-          f"prefill vs bf16 decode: {fid}")
+    if not cfg.moe:
+        check(fid["prefill_vs_decode_rel"] <= 0.1
+              and fid["prefill_vs_decode_corr"] >= 0.99,
+              f"prefill vs bf16 decode: {fid}")
     check(fid["finite"], "fidelity logits not finite")
-    del params, logits, lk, le
+    return fid
+
+
+def lm_phases(results, dev):
+    """Phases 9-12; returns kernel 7's row of the ``kernels`` line."""
+    import torch
+
+    from repro_torch.configs import llama32_3b as LC
+    from repro_torch.models import transformer as TT
+
+    # -- 9. LM build ------------------------------------------------------
+    cfg = LC.ashkv_config()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, t_init = sync_time(TT.init_params, torch.Generator(
+        device=dev).manual_seed(0), cfg, device=dev)
+    cache, t_cache = sync_time(TT.init_cache, cfg, LM_BATCH, LM_MAX_LEN,
+                               device=dev)
+    results["lm_build"] = lm_build_row(params, cfg, cache, LM_BATCH, t_init,
+                                       t_cache)
+    log("lm_build", **results["lm_build"])
+
+    # -- 10. kernel 7 against its plain version --------------------------
+    gen = torch.Generator(device=dev).manual_seed(10)
+    kv = kv_layer_check(cfg, LM_BATCH, dev, gen)
+    b, dc = cfg.kv_quant_bits, cfg.code_dim
+    edges = []
+    for bk in (1, 2, 4, 8):
+        for bv in (1, 2, 4, 8):
+            edges.append(dict(bk=bk, bv=bv, N1=4, N2=8, S=1000, G=3,
+                              dk=128, dv=128, bias=True, mask_from=0))
+    # rows of 5 and 6 words: the kernel's 4-byte copy path
+    edges.append(dict(bk=4, bv=8, N1=3, N2=2, S=700, G=3, dk=40, dv=24,
+                      bias=True, mask_from=0))
+    for G_ in (1, 3, 8):
+        for S_, mf in ((77, 0), (4099, 700), (300, 200)):
+            for sd in (torch.float32, torch.bfloat16):
+                edges.append(dict(bk=4, bv=2, N1=5, N2=1, S=S_, G=G_, dk=96,
+                                  dv=64, bias=G_ != 3, mask_from=mf,
+                                  scale_dtype=sd))
+    edge_err, edge_ok = kv_edges(edges, gen, dev)
+    check(all(edge_ok), f"kernel 7 edge shapes: {edge_ok}")
+    results["kv_kernel"] = dict(
+        kv, edge_cases=len(edges), edge_max_abs_err=edge_err,
+        ptxas=results["ptxas"]["ash_kv_attn_kernel"])
+    log("kv_kernel", **results["kv_kernel"])
+
+    # -- 11. decode stream ------------------------------------------------
+    # layer 0's cache holds LM_CONTEXT encoded random K/V vectors, copied
+    # to every layer; then LM_STEPS greedy steps
+    gen = torch.Generator(device=dev).manual_seed(11)
+    fill_s = fill_cache(params, cfg, cache, LM_BATCH, dev, gen,
+                        FILL_POSITIONS)
+    dec, k7_launches, prof = decode_stream(params, cfg, cache, LM_BATCH, dev,
+                                           gen)
+    results["decode"] = dict(dec, fill_s=fill_s)
+    log("decode", **results["decode"])
+    # 11b. where a decode step's time goes (the cache at its last length)
+    results["profile_decode_step"] = prof
+    log("profile_decode", **prof)
+    del cache
+    torch.cuda.empty_cache()
+
+    # -- 12. fidelity and prefill ------------------------------------------
+    results["fidelity"] = fidelity(params, cfg, dev, gen)
+    log("fidelity", **results["fidelity"])
+    del params
     torch.cuda.empty_cache()
     return dict(
         name="ash_kv_attn", route="cuda",
         source="src/repro_torch/kernels/csrc/ash_kv_attn.cu",
         replaces="src/repro/kernels/ash_kv_attn.py:96",
-        launches=launches["ash_kv_attn"], max_abs_err=err_main, ms=ms,
-        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=lib_ms,
+        launches=k7_launches, max_abs_err=kv["max_abs_err"], ms=kv["ms"],
+        plain_ms=kv["plain_ms"], bound_ms=kv["bound_ms"],
+        bound_by=kv["bound_by"], library_ms=kv["library_ms"],
         library_call=f"{KV_SDPA} over pre-dequantized bf16 K and V")
+
+
+def lm_build_row(params, cfg, cache, batch, t_init, t_cache):
+    """Phase 9's (and 19's) build line: parameter count held to the
+    config's, weight and cache sizes, peak memory."""
+    import torch
+
+    n_params = sum(p.numel() for p in params.parameters())
+    kvq = params.kv_Wk.numel() + params.kv_Wv.numel()
+    check(n_params - kvq == cfg.param_count(), "parameter count")
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    c_bytes = {k: v.numel() * v.element_size() for k, v in cache.items()}
+    return dict(
+        config=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        kv_quant_bits=cfg.kv_quant_bits, code_dim=cfg.code_dim,
+        batch=batch, max_len=LM_MAX_LEN, params=n_params,
+        weight_gb=w_bytes / 1e9, cache_gb=sum(c_bytes.values()) / 1e9,
+        cache_codes_gb=(c_bytes["k_codes"] + c_bytes["v_codes"]) / 1e9,
+        cache_scales_gb=(c_bytes["k_scale"] + c_bytes["v_scale"]) / 1e9,
+        init_s=t_init, cache_s=t_cache,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def kv_edges(edges, gen, dev):
+    """Kernel 7 against its plain version at each edge shape: (largest
+    |err|, each case's verdict)."""
+    from repro_torch.kernels import ash_kv_attn as KA
+    from repro_torch.kernels import ref
+
+    edge_err, edge_ok = 0.0, []
+    for e in edges:
+        e = dict(e)
+        bk, bv = e.pop("bk"), e.pop("bv")
+        t = kv_operands(gen, e.pop("N1"), e.pop("N2"), e.pop("S"), e.pop("G"),
+                        bk, bv, e.pop("dk"), e.pop("dv"), dev, **e)
+        ok, err = kv_close(
+            kv_call(KA.ash_kv_attn_cuda, t, bk, bv),
+            kv_call(lambda *a, **kw: ref.ash_kv_attn_ref(
+                *a[:6], kw["b_k"], kw["b_v"], mask=a[6])[0], t, bk, bv))
+        edge_ok.append(ok)
+        edge_err = max(edge_err, err)
+    return edge_err, edge_ok
 
 
 # -- the serving engine (phase 13) --------------------------------------
@@ -1502,39 +1656,53 @@ def _latency(search, queries, n=IDX_TIMED):
     return pct(lat, 50), pct(lat, 99)
 
 
-def _coarse_merge(model, payload, S, q, k, rerank=0, raw=None):
-    """Flat coarse searches over ``from_parts`` of each shard's rows
-    alone, merged by a stable top-k of the union (and, with ``rerank``,
-    the merged top-``rerank`` reranked on ``raw`` by
-    ``common.exact_rerank``): the sharded coarse result computed without
-    the sharded backend."""
+def _shard_merge(flat, S, q, k, **kw):
+    """Flat searches (``kw``: coarse, rerank) over ``from_parts`` of each
+    of ``S`` shards' rows alone (its raw rows and tombstones), merged by
+    a stable top-k of the union, rows mapped to the flat index's ids:
+    the sharded result computed without the sharded backend (coarse and
+    exact rerank run per shard, as the reference's)."""
     import torch
 
     from repro_torch.core.types import ASHPayload
     from repro_torch.index import AshIndex
-    from repro_torch.index import common as C
 
-    depth = max(rerank, k)
-    nl = -(-payload.n // S)
-    vals, ids = [], []
+    st, pay = flat._state, flat.payload
+    nl = -(-pay.n // S)
+    vals, rows = [], []
     for s in range(S):
-        r0, r1 = s * nl, min((s + 1) * nl, payload.n)
-        part = ASHPayload(b=payload.b, d=payload.d, **{
-            f: getattr(payload, f)[r0:r1] for f in ASHPayload.ARRAY_FIELDS})
-        v, i = AshIndex.from_parts(model, part).search(
-            q, k=min(depth, r1 - r0), coarse="int8")
+        r0, r1 = s * nl, min((s + 1) * nl, pay.n)
+        if r1 <= r0:
+            continue
+        part = ASHPayload(b=pay.b, d=pay.d, **{
+            f: getattr(pay, f)[r0:r1] for f in ASHPayload.ARRAY_FIELDS})
+        one = AshIndex.from_parts(
+            flat.model, part, metric=flat.metric,
+            raw=None if st.raw is None else st.raw[r0:r1])
+        if st.live is not None:
+            one.delete(torch.nonzero(~st.live[r0:r1])[:, 0].tolist())
+        v, i = one.search(q, k=min(k, r1 - r0), **kw)
         vals.append(v)
-        ids.append(torch.where(i < 0, -1, i + r0))
-    v, i = torch.cat(vals, 1), torch.cat(ids, 1)
+        rows.append(torch.where(i < 0, -1, i + r0))
+    v, i = torch.cat(vals, 1), torch.cat(rows, 1)
     o = torch.sort(torch.where(i < 0, 2**31 - 1, i), dim=1,
                    stable=True).indices
     v, i = v.gather(1, o), i.gather(1, o)
-    o = torch.sort(v, dim=1, descending=True, stable=True).indices[:, :depth]
+    o = torch.sort(v, dim=1, descending=True, stable=True).indices[:, :k]
     v, i = v.gather(1, o), i.gather(1, o)
-    if not rerank:
-        return v, i
-    prep = AshIndex.from_parts(model, payload).prepare(q)
-    return C.exact_rerank(prep, raw, v, i, "dot", k)
+    if st.ids is not None:
+        i = torch.where(i < 0, -1, st.ids[i.clamp(min=0).long()])
+    return v, i.to(torch.int32)
+
+
+def _sharded_equal(got, flat, S, q, kw):
+    """A sharded result's gate: EQUAL to flat's, or with rerank (run per
+    shard) EQUAL to the per-shard merge and an exact score at every rank
+    at least flat's (a superset of flat's shortlist was reranked)."""
+    if not kw.get("rerank"):
+        return _eq(got, flat.search(q, **kw))
+    return (_eq(got, _shard_merge(flat, S, q, **kw))
+            and bool((got[0] >= flat.search(q, **kw)[0]).all()))
 
 
 def _engine_equal(eng, idx, qh, routes, n_req=48):
@@ -1558,7 +1726,8 @@ def _engine_equal(eng, idx, qh, routes, n_req=48):
 def sharded_phase(results, index, queries, tally):
     """Phase 14: the sharded backend over phase 3's payload, 4 and 3
     logical shards on the one card (and one per card where more are
-    visible), held EQUAL to the flat backend."""
+    visible), held EQUAL to the flat backend, or with coarse and rerank
+    (run per shard) to a merge of per-shard flat searches."""
     import numpy as np
     import torch
 
@@ -1588,20 +1757,20 @@ def sharded_phase(results, index, queries, tally):
             eq = {}
             for kw in routes:
                 got = tally.run(sh.search, q8, **kw)
-                want = flat.search(q8, **kw)
                 alone = tally.run(sh.search, q1, **kw)
-                eq[str(kw)] = [_eq(got, want),
+                eq[str(kw)] = [_sharded_equal(got, flat, S, q8, kw),
                                _eq(alone, tuple(t[3:4] for t in got))]
                 check(all(eq[str(kw)]), f"S={S} {metric} {kw}: sharded "
-                      f"!= flat or a query alone != its batch row")
+                      f"!= flat (rerank: != per-shard merge or below "
+                      f"flat) or a query alone != its batch row")
             if metric == "dot":
                 # coarse keeps its shortlist per shard: EQUAL to flat
                 # coarse searches of each shard's rows alone, merged
                 for rr in (0, RERANK):
                     got = tally.run(sh.search, q8, k=10, coarse="int8",
                                     rerank=rr)
-                    merged = _coarse_merge(model, payload, S, q8, 10, rr,
-                                           raw)
+                    merged = _shard_merge(flat, S, q8, 10, coarse="int8",
+                                          rerank=rr)
                     eq[f"coarse_k10_rerank{rr}_vs_merge"] = _eq(got, merged)
                     check(_eq(got, merged),
                           f"S={S} rerank={rr}: coarse != per-shard merge")
@@ -1630,6 +1799,7 @@ def sharded_phase(results, index, queries, tally):
                                  shard_merges=under, merges=merges)
 
     # deletes, add, compact: EQUAL to a flat twin with the same mutations
+    # (rerank: to the twin's per-shard merge)
     flat_m = AshIndex.from_parts(model, payload, metric="dot", raw=raw)
     sh_m = AshIndex.from_parts(model, payload, backend="sharded",
                                raw=raw, mesh=[dev] * 3)
@@ -1646,8 +1816,9 @@ def sharded_phase(results, index, queries, tally):
         elif step == "compacted":
             sh_m.compact()
             flat_m.compact()
-        mut[step] = all(_eq(tally.run(sh_m.search, q8, **kw),
-                            flat_m.search(q8, **kw)) for kw in routes[:3])
+        mut[step] = all(_sharded_equal(tally.run(sh_m.search, q8, **kw),
+                                       flat_m, 3, q8, kw)
+                        for kw in routes[:3])
         check(mut[step], f"sharded != flat after the {step} step")
     check(sh_m.n == flat_m.n == N - SHARD_DELETE + SHARD_ADD,
           "sharded rows after compaction")
@@ -1701,8 +1872,8 @@ def sharded_phase(results, index, queries, tally):
         mesh = [torch.device("cuda", i) for i in range(n_dev)]
         shm = AshIndex.from_parts(model, payload, backend="sharded",
                                   raw=raw, mesh=mesh)
-        same = [_eq(tally.run(shm.search, q8, **kw), flat.search(q8, **kw))
-                for kw in routes]
+        same = [_sharded_equal(tally.run(shm.search, q8, **kw), flat,
+                               n_dev, q8, kw) for kw in routes]
         check(all(same), f"one shard per card != flat {same}")
         res = shm.search(q8, k=K)
         torch.cuda.synchronize()
@@ -2418,14 +2589,263 @@ def launcher_phase(results, launches):
     log("launcher", phase_seconds=out["phase_seconds"])
 
 
-def main() -> int:
+# -- the paper's baselines at iso-bits (phase 18) -----------------------
+# phase 3's 10^6 rows, ~256 code bits a vector each, against phase 6's
+# exact top-10 of the 1,000 held-out queries; OPQ's and LOPQ's trainings
+# (k-means++ seeding syncs with the host once a centroid, 256 centroids a
+# segment) run on the first BASE_TRAIN_CUT rows to keep the phase in
+# budget, and every row is encoded
+BASE_Q_CHUNK = 125  # queries a score call for the recall
+BASE_TRAIN_CUT = 100_000
+BASE_SCORE_ROWS = 1_000  # rows of the PQ ADC and EDEN norm gates
+
+
+def baselines_phase(results, index, X, queries, gt, ash_recall, tally):
+    """Phase 18.  ``gt``: the exact top-10 of ``queries[:len(gt)]``;
+    ``ash_recall``: phase 6's 10-recall@10 of the ASH index (kernel
+    route); ``tally`` counts the RaBitQ index's kernel launches."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this "
-              "script needs a CUDA card", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.baselines import eden, leanvec, lopq, pq, rabitq
+    from repro_torch.core import quantization as Q
+    from repro_torch.index import AshIndex, recall_at
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ash_score as TK
+    from repro_torch.kernels import ref
+
+    t_phase = time.perf_counter()
+    qf, q8 = queries[:gt.shape[0]], queries[:REQ_M]
+    rows = {}
+
+    def topk_ids(score_fn):
+        return torch.cat([
+            torch.topk(score_fn(qf[i:i + BASE_Q_CHUNK]), 10, dim=1).indices
+            for i in range(0, qf.shape[0], BASE_Q_CHUNK)])
+
+    def method(name, mod, train_rows, **cfg):
+        gen = torch.Generator().manual_seed(18)
+        st, t_train = sync_time(mod.train, gen, X[:train_rows], **cfg,
+                                device=X.device)
+        enc, t_enc = sync_time(mod.encode, st, X)
+        ms = event_ms(lambda: torch.topk(mod.score(st, enc, q8), 10, dim=1),
+                      iters=5, warmup=1)
+        rows[name] = dict(
+            bits=st.bits_per_vector, train_rows=train_rows, train_s=t_train,
+            encode_s=t_enc, score_ms_8q=ms,
+            recall_10_at_10=recall_at(topk_ids(
+                lambda q: mod.score(st, enc, q)), gt))
+        if train_rows < X.shape[0]:
+            log("baselines_cut", method=name, train_rows=train_rows,
+                encoded_rows=X.shape[0])
+        return st, enc
+
+    bi = results["build_index"]
+    rows["ash"] = dict(
+        bits=bi["payload_bits"], train_rows=X.shape[0], train_s=bi["train_s"],
+        encode_s=bi["encode_s"],
+        score_ms_8q=event_ms(lambda: index.search(q8, k=10), iters=5,
+                             warmup=1),
+        recall_10_at_10=ash_recall)
+    n_all = X.shape[0]
+    gates = {}
+    # PQ: ADC == <q, decode(codes)> (the reference's test_pq_adc bound)
+    st, codes = method("pq", pq, n_all, M=32, b=8)
+    c1k = codes[:BASE_SCORE_ROWS]
+    adc, want = pq.score(st, c1k, q8), q8 @ pq.decode(st, c1k).T
+    adc_err = float((adc - want).abs().max())
+    gates["pq_adc_vs_decode_max_abs"] = adc_err
+    check(torch.allclose(adc, want, rtol=1e-3, atol=1e-3),
+          f"PQ ADC != <q, decode(codes)>: {adc_err}")
+    del st, codes, c1k
+    method("opq", pq, min(n_all, BASE_TRAIN_CUT), M=32, b=8, opq_iters=2)
+    method("lopq", lopq, min(n_all, BASE_TRAIN_CUT), M=32, b=8, C=4,
+           local_iters=2, kmeans_iters=10)
+    for variant in ("eden", "turboquant"):
+        st, enc = method(variant, eden, n_all, b=1, variant=variant)
+        if variant == "eden":  # EDEN's scale keeps each row's norm
+            sub = (enc[0][:BASE_SCORE_ROWS], enc[1][:BASE_SCORE_ROWS])
+            got = torch.linalg.norm(eden.decode(st, sub), dim=1)
+            want = torch.linalg.norm(X[:BASE_SCORE_ROWS], dim=1)
+            rel = float(((got - want).abs() / want).max())
+            gates["eden_norm_max_rel"] = rel
+            check(rel <= 1e-3, f"EDEN decode norms: max rel {rel}")
+        del st, enc
+    method("leanvec", leanvec, n_all, d=64, b=4)
+    torch.cuda.empty_cache()
+
+    # RaBitQ: an ASH model, searched through AshIndex on the card at
+    # b = 1, d = 256, C = 1: kernel 2 (fused k = 100) and kernel 1
+    # (materializing, rerank 256), each against its plain route
+    gen = torch.Generator().manual_seed(18)
+    model, t_train = sync_time(rabitq.train, gen, X, b=1, device=X.device)
+    payload, t_enc = sync_time(rabitq.encode, model, X)
+    ridx = AshIndex.from_parts(model, payload, metric="dot",
+                               raw=index._state.raw)
+    check(model.d == model.D == DIM and model.landmarks.shape[0] == 1
+          and payload.b == 1, "RaBitQ shape")
+    prep = ridx.prepare(q8)
+    args = ops._score_args(prep, payload)
+    d_pad = args[1].shape[1]
+    want = ref.ash_score_metric_ref(*args, None, None, b=1, metric="dot")
+    got = TK.ash_score_cuda(*args, None, None, b=1, metric="dot")
+    V_abs = Q.unpack_codes(payload.codes, d_pad, 1).float().abs()
+    codes_, qp, scale, offset, cluster, ipq = args
+    tol = ref.score_tolerance((qp.abs() @ V_abs.T) * scale.abs()[None, :],
+                              ipq[:, cluster.long()], offset, None, None,
+                              want, "dot", d_pad)
+    del V_abs
+    ratio = float(((got - want).abs() / tol).max())
+    check(ratio <= 1.0, f"RaBitQ kernel 1 vs plain: max ratio {ratio}")
+    row_tol = tol.max(dim=1, keepdim=True).values
+    ks, ki = tally.run(ridx.search, q8, k=K)
+    ps, pi = ridx.search(q8, k=K, use_kernel=False)
+    differ = ki != pi
+    gap = (want.gather(1, ki.long()) - want.gather(1, pi.long())).abs()
+    check(bool(((ks - ps).abs() <= row_tol).all())
+          and bool((gap[differ] <= 2 * row_tol.expand_as(gap)[differ]).all()),
+          "RaBitQ fused top-k vs plain route beyond the bound")
+    del got, want, tol, gap
+    rq = {}
+    for route, kw in (("fused_k10", dict(k=10)),
+                      ("rerank256", dict(k=10, rerank=RERANK))):
+        kid = torch.cat([tally.run(ridx.search, qf[i:i + BASE_Q_CHUNK],
+                                   **kw)[1]
+                         for i in range(0, qf.shape[0], BASE_Q_CHUNK)])
+        pid = torch.cat([ridx.search(qf[i:i + BASE_Q_CHUNK],
+                                     use_kernel=False, **kw)[1]
+                         for i in range(0, qf.shape[0], BASE_Q_CHUNK)])
+        rq[route] = dict(kernel=recall_at(kid, gt), plain=recall_at(pid, gt))
+        check(abs(rq[route]["kernel"] - rq[route]["plain"]) <= 0.005,
+              f"RaBitQ {route} recall kernel vs plain: {rq[route]}")
+    rows["rabitq"] = dict(
+        bits=model.config.payload_bits(), train_rows=n_all, train_s=t_train,
+        encode_s=t_enc,
+        score_ms_8q=event_ms(lambda: ridx.search(q8, k=10), iters=5,
+                             warmup=1),
+        recall_10_at_10=rq["fused_k10"]["kernel"])
+    gates.update(rabitq_kernel1_max_err_over_bound=ratio,
+                 rabitq_topk_id_mismatch=int(differ.sum()),
+                 rabitq_recall=rq)
+    del ridx, payload, model
+    torch.cuda.empty_cache()
+    results["baselines"] = dict(methods=rows, gates=gates,
+                                queries=int(qf.shape[0]),
+                                seconds=time.perf_counter() - t_phase)
+    print(json.dumps({"baselines": rows}), flush=True)
+    log("baselines_gates", seconds=results["baselines"]["seconds"], **gates)
+    return ratio
+
+
+# -- granite-moe-3b decode in the decode_32k_ashkv cell (phase 19) -------
+# 32 layers at full width, 40 experts top-8, d_head 64 (G = 3): the
+# cell's batch of 128 holds a 73 GB cache beside 6.75 GB of weights; the
+# fill encodes a block of GRANITE_FILL_BLOCK positions GRANITE_FILL_CHUNK
+# at a time (one layer's fp32 K at batch 128 alone is 8.6 GB) and copies
+# it along the context and to every layer
+GRANITE_BATCH, GRANITE_CUT_BATCH = 128, 64
+# 32 positions a chunk: the exact quantizer's sort of one chunk of
+# 32,768 vectors takes ~0.35 GB; 256 positions take ~2.8 GB, more than
+# batch 128 leaves free
+GRANITE_FILL_CHUNK, GRANITE_FILL_BLOCK = 32, 1024
+GRANITE_PLAIN_ROWS = 16  # batch rows a call of kernel 7's plain version
+# 19c: a decode step costs ~165 ms of host time at granite's 32 MoE
+# layers, so 128 teacher-forced tokens over four routes (the free plain
+# route left out) keep phases 18-19 near their 180 s budget
+GRANITE_FID_LEN = 128
+
+
+def granite_phase(results, dev):
+    """Phase 19 (run first: see ``main``); returns kernel 7's launches
+    and its row at the granite shape for the ``kernels`` line."""
+    import torch
+
+    from repro_torch.configs import granite_moe_3b as GC
+    from repro_torch.models import moe as TM
+    from repro_torch.models import transformer as TT
+
+    t_phase = time.perf_counter()
+    cfg = GC.ashkv_config()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, t_init = sync_time(TT.init_params, torch.Generator(
+        device=dev).manual_seed(19), cfg, device=dev)
+
+    # -- 19a. kernel 7 at one granite layer, before the cache is placed
+    gen = torch.Generator(device=dev).manual_seed(191)
+    batch = GRANITE_BATCH
+    kv = kv_layer_check(cfg, batch, dev, gen, plain_rows=GRANITE_PLAIN_ROWS)
+    results["granite_kv_kernel"] = kv
+    log("granite_kv_kernel", **kv)
+
+    # -- 19b. the cache at the cell's batch (cut to 64 if it does not fit)
+    def place(batch):
+        cache, t_cache = sync_time(TT.init_cache, cfg, batch, LM_MAX_LEN,
+                                   device=dev)
+        fill_s = fill_cache(params, cfg, cache, batch, dev, gen,
+                            GRANITE_FILL_CHUNK, GRANITE_FILL_BLOCK)
+        # one step at the last position: a batch that fits its cache
+        # but not a step's work is cut too
+        TT.decode_step(params, cache, torch.zeros(
+            batch, dtype=torch.long, device=dev), LM_MAX_LEN - 1, cfg)
+        return cache, t_cache, fill_s
+
+    cut = None
+    torch.cuda.empty_cache()
+    try:
+        cache, t_cache, fill_s = place(batch)
+    except torch.cuda.OutOfMemoryError:
+        cut = dict(batch_from=batch, batch_to=GRANITE_CUT_BATCH,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if cut is not None:
+        log("granite_cut", **cut)
+        torch.cuda.empty_cache()
+        batch = GRANITE_CUT_BATCH
+        cache, t_cache, fill_s = place(batch)
+    build = lm_build_row(params, cfg, cache, batch, t_init, t_cache)
+    build.update(cut=cut, experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+                 active_params=cfg.active_param_count())
+    results["granite_build"] = build
+    log("granite_build", **build)
+    dec, k7_launches, prof = decode_stream(params, cfg, cache, batch, dev,
+                                           gen)
+    # the MoE dispatch/combine of a step: every layer's moe_block at the
+    # step's token count, profiled alone (its batched products are the
+    # experts' GEMMs; the rest is routing, sort, searchsorted, scatter
+    # and gather)
+    h = torch.randn(batch, cfg.d_model, generator=gen, device=dev).to(
+        cfg.dtype)
+    moe_prof = profile_step(lambda: [TM.moe_block(lp.moe, h, cfg.moe)
+                                     for lp in params.layers])
+    prof["moe_block_device_ms"] = moe_prof["device_ms_by_group"]
+    prof["moe_dispatch_combine_ms"] = moe_prof["device_ms_by_group"]["other"]
+    results["granite_decode"] = dict(dec, fill_s=fill_s)
+    results["granite_profile_decode_step"] = prof
+    log("granite_decode", **results["granite_decode"])
+    log("granite_profile_decode", **prof)
+    del cache
+    torch.cuda.empty_cache()
+
+    # -- 19c. fidelity at batch 4 ------------------------------------------
+    results["granite_fidelity"] = fidelity(params, cfg, dev, gen,
+                                           tokens=GRANITE_FID_LEN, free=False)
+    log("granite_fidelity", **results["granite_fidelity"])
+    del params
+    torch.cuda.empty_cache()
+    results["granite_seconds"] = time.perf_counter() - t_phase
+    log("granite_phase", seconds=results["granite_seconds"])
+    return k7_launches, dict(
+        batch=batch, launches=k7_launches, **{
+            k: kv[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                               "bound_ms", "bound_by", "library_ms",
+                               "bound_share")})
+
+
+def ann_phases(results, dev):
+    """Phases 3-8 and 13-18 over phase 3's index; returns the rows of
+    kernels 1-6 for the ``kernels`` line (every tensor of these phases
+    is released when it returns)."""
+    import torch
+
     from repro_torch.core import ash as A
     from repro_torch.core import quantization as Q
     from repro_torch.core import scoring as S
@@ -2433,70 +2853,9 @@ def main() -> int:
     from repro_torch.data.synthetic import embedding_dataset
     from repro_torch.index import AshIndex, exact_topk, recall_curve
     from repro_torch.index import ivf as IV
-    from repro_torch.kernels import _build, ops, probe
+    from repro_torch.kernels import ops, probe
     from repro_torch.kernels import ash_score as TK
     from repro_torch.kernels import ref
-
-    results = {}
-    dev = torch.device("cuda")
-
-    # -- 1. device ------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-    kind = torch.cuda.get_device_name(0)
-    results["device"] = dict(name=kind, nvidia_smi=smi,
-                             count=torch.cuda.device_count(),
-                             torch=torch.__version__,
-                             cuda=torch.version.cuda)
-    log("device", **results["device"])
-
-    # -- 2. build -------------------------------------------------------
-    t0 = time.perf_counter()
-    libs = _build.build_all()
-    TK.load_all()
-    build_s = time.perf_counter() - t0
-    ptxas = []
-    for lib in libs.values():
-        logf = lib.with_suffix(".log")
-        if logf.exists():
-            ptxas += [ln.strip() for ln in logf.read_text().splitlines()
-                      if "registers" in ln or "spill" in ln]
-    results["build"] = dict(seconds=build_s, libs=[str(p.name) for p in
-                                                   libs.values()],
-                            ptxas=ptxas)
-    log("build", seconds=build_s,
-        libs=results["build"]["libs"],
-        max_registers=max([int(ln.split("Used ")[1].split()[0])
-                           for ln in ptxas if "Used " in ln] or [0]),
-        spills=sorted({ln for ln in ptxas if "spill" in ln
-                       and not ln.startswith("0 bytes stack frame, 0 bytes "
-                                             "spill stores, 0 bytes spill")}
-                      )[:4])
-    # registers and spills of kernels 7, 4, 1, 3, 5 and 6, and of their
-    # main-path instances (kernel 7 at b_k = b_v = 4 with 8 PV m-tiles;
-    # kernel 4 at b = 2, dot, lists of 128 keys for k = 100; kernels 1, 3
-    # and 5 at b = 2, dot; kernel 6 at b = 2, dot, lists of 32 keys for the
-    # coarse plans' L = 32)
-    results["ptxas"] = {
-        "ash_kv_attn_kernel": ptxas_report(
-            libs, "ash_kv_attn_kernel", "ash_kv_attn_kernelILi4ELi4ELi8E"),
-        "ash_gather_topk_kernel": ptxas_report(
-            libs, "ash_gather_topk_kernel",
-            "ash_gather_topk_kernelILi2ELi0ELi4E"),
-        "ash_score_kernel": ptxas_report(
-            libs, "ash_score_kernel", "ash_score_kernelILi2ELi0E"),
-        "ash_gather_kernel": ptxas_report(
-            libs, "ash_gather_kernel", "ash_gather_kernelILi2ELi0E"),
-        "ash_coarse_kernel": ptxas_report(
-            libs, "ash_coarse_kernel", "ash_coarse_kernelILi2ELi0ELb0E"),
-        "ash_coarse_topk_kernel": ptxas_report(
-            libs, "ash_coarse_topk_kernel",
-            "ash_coarse_topk_kernelILi2ELi0ELi1E"),
-    }
-    log("ptxas", **results["ptxas"])
 
     # -- 3. train + encode on the card ----------------------------------
     # queries are held-out rows of the same distribution as the index
@@ -3219,7 +3578,114 @@ def main() -> int:
         if "merge_launches" in row:
             row["merge_launches"] += dur_tally.merges.get(row["name"], 0)
 
+
+    # -- 18. the paper's baselines at iso-bits -----------------------------
+    # counts are zeroed first; kernels 1 and 2 add the RaBitQ index's
+    # searches (_Tally; not the launches it is compared with)
+    TK.reset_launch_counts()
+    base_tally = _Tally()
+    baselines_phase(results, index, X, queries, gt, rec["kernel"][10],
+                    base_tally)
+    for name in ("ash_score", "ash_score_topk", "ash_topk_merge"):
+        check(base_tally.launches.get(name, 0) > 0,
+              f"phase 18 never launched {name}: {base_tally.launches}")
+    for row in rows:
+        row["baselines_launches"] = base_tally.launches.get(row["name"], 0)
+        row["launches"] += row["baselines_launches"]
+        if "merge_launches" in row:
+            row["merge_launches"] += base_tally.merges.get(row["name"], 0)
+    return rows
+
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this "
+              "script needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ash_score as TK
+
+    results = {}
+    dev = torch.device("cuda")
+
+    # -- 1. device ------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    results["device"] = dict(name=kind, nvidia_smi=smi,
+                             count=torch.cuda.device_count(),
+                             torch=torch.__version__,
+                             cuda=torch.version.cuda)
+    log("device", **results["device"])
+
+    # -- 2. build -------------------------------------------------------
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    TK.load_all()
+    build_s = time.perf_counter() - t0
+    ptxas = []
+    for lib in libs.values():
+        logf = lib.with_suffix(".log")
+        if logf.exists():
+            ptxas += [ln.strip() for ln in logf.read_text().splitlines()
+                      if "registers" in ln or "spill" in ln]
+    results["build"] = dict(seconds=build_s, libs=[str(p.name) for p in
+                                                   libs.values()],
+                            ptxas=ptxas)
+    log("build", seconds=build_s,
+        libs=results["build"]["libs"],
+        max_registers=max([int(ln.split("Used ")[1].split()[0])
+                           for ln in ptxas if "Used " in ln] or [0]),
+        spills=sorted({ln for ln in ptxas if "spill" in ln
+                       and not ln.startswith("0 bytes stack frame, 0 bytes "
+                                             "spill stores, 0 bytes spill")}
+                      )[:4])
+    # registers and spills of kernels 7, 4, 1, 3, 5 and 6, and of their
+    # main-path instances (kernel 7 at b_k = b_v = 4 with 8 PV m-tiles;
+    # kernel 4 at b = 2, dot, lists of 128 keys for k = 100; kernels 1, 3
+    # and 5 at b = 2, dot; kernel 6 at b = 2, dot, lists of 32 keys for the
+    # coarse plans' L = 32)
+    results["ptxas"] = {
+        "ash_kv_attn_kernel": ptxas_report(
+            libs, "ash_kv_attn_kernel", "ash_kv_attn_kernelILi4ELi4ELi8E"),
+        "ash_gather_topk_kernel": ptxas_report(
+            libs, "ash_gather_topk_kernel",
+            "ash_gather_topk_kernelILi2ELi0ELi4E"),
+        "ash_score_kernel": ptxas_report(
+            libs, "ash_score_kernel", "ash_score_kernelILi2ELi0E"),
+        "ash_gather_kernel": ptxas_report(
+            libs, "ash_gather_kernel", "ash_gather_kernelILi2ELi0E"),
+        "ash_coarse_kernel": ptxas_report(
+            libs, "ash_coarse_kernel", "ash_coarse_kernelILi2ELi0ELb0E"),
+        "ash_coarse_topk_kernel": ptxas_report(
+            libs, "ash_coarse_topk_kernel",
+            "ash_coarse_topk_kernelILi2ELi0ELi1E"),
+    }
+    log("ptxas", **results["ptxas"])
+
+    # -- 19. granite-moe-3b decode, first, on the card's empty memory ------
+    # batch 128 needs 79.8 GB of the card's 85.0; after the other phases
+    # the process keeps ~7 GB that the allocator cannot give back (CUDA
+    # context, library workspaces, profiler buffers: 78.2 GB free there,
+    # measured), so this phase runs before them
+    free, total = torch.cuda.mem_get_info()
+    results["before_granite"] = dict(
+        allocated_gb=torch.cuda.memory_allocated() / 1e9,
+        free_gb=free / 1e9, total_gb=total / 1e9)
+    log("before_granite", **results["before_granite"])
+    k7_granite, granite_row = granite_phase(results, dev)
+
+    rows = ann_phases(results, dev)
     rows.append(lm_phases(results, dev))
+    rows[-1]["launches"] += k7_granite
+    rows[-1]["granite"] = granite_row
     results["kernels"] = rows
 
     check(not torch.backends.cuda.matmul.allow_tf32

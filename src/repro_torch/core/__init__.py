@@ -14,8 +14,10 @@ from repro_torch.core.scoring import (
     prepare_coarse_queries,
     prepare_queries,
     score_dot,
+    score_dot_1bit,
     score_l2,
     score_cosine,
+    score_symmetric_dot,
 )
 
 __all__ = [
@@ -24,6 +26,6 @@ __all__ = [
     "quantization", "learning", "ash", "scoring",
     "train", "encode", "decode", "random_model",
     "coarse_codes", "payload_stats", "prepare_coarse_queries",
-    "prepare_queries", "score_dot", "score_l2",
-    "score_cosine",
+    "prepare_queries", "score_dot", "score_dot_1bit",
+    "score_l2", "score_cosine", "score_symmetric_dot",
 ]

@@ -1,11 +1,15 @@
 """Similarity computations from ASH payloads.
 
-The asymmetric dot product (Eq. 20), Euclidean distance and cosine
-similarity (Appendix A): the plain reference scorers.  The CUDA
+The asymmetric dot product (Eq. 20) and its 1-bit masked-add form
+(Eq. 22), Euclidean distance and cosine similarity (Appendix A), the
+symmetric dot product of two encoded sets (Appendix B) and the Eq. (34)
+bias correction: the plain reference scorers.  The CUDA
 kernels in ``repro_torch.kernels`` are held against their plain
 versions in ``repro_torch.kernels.ref``, which apply the same terms.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -13,6 +17,7 @@ from repro_torch.core import quantization as Q
 from repro_torch.core.types import (
     ASHModel, ASHPayload, ASHStats, CoarseCodes, CoarseQueryPrep, QueryPrep,
 )
+
 from repro_torch.device import full_fp32, row_blocked
 
 _EPS = 1e-12
@@ -152,6 +157,43 @@ def _score_dot_from_V(prep, payload, V, rowwise):
     return scale * dot + query_compute + offset
 
 
+def score_dot_1bit(
+    model: ASHModel, prep: QueryPrep, payload: ASHPayload
+) -> torch.Tensor:
+    """1-bit masked-add formulation, Eq. (22): (m, n).  Equal to
+    :func:`score_dot` at b = 1 up to rounding; mirrors the masked-load
+    kernel."""
+    if payload.b != 1:
+        raise ValueError(f"score_dot_1bit takes b = 1, got b = {payload.b}")
+    full_fp32()
+    d = payload.d
+    V = Q.unpack_codes(payload.codes, d, 1).to(torch.float32)
+    Bmat = torch.div(V + 1, 2, rounding_mode="floor")  # bin() in {0, 1}
+    sqrt_d = torch.sqrt(torch.tensor(float(d), dtype=torch.float32))
+    scale_h = payload.scale.to(torch.float32)
+    res_norm = scale_h * sqrt_d  # ||v|| = sqrt(d) for b = 1
+    inv_sqrt_d = 1.0 / sqrt_d
+    masked_add = prep.q_proj @ Bmat.T  # (m, n): sum of q_j where bit set
+    sum_q = prep.q_proj.sum(dim=-1, keepdim=True)  # <q, 1>
+    scale = 2.0 * inv_sqrt_d * res_norm[None, :]
+    cl = payload.cluster.long()
+    query_compute = (
+        -inv_sqrt_d * res_norm[None, :] * sum_q
+        + prep.ip_q_landmarks[:, cl]
+    )
+    ip_Wmu_2b1 = (model.W_landmarks[cl] * (2.0 * Bmat - 1.0)).sum(dim=-1)
+    offset_terms = (
+        # <x, mu*> recovered
+        payload.offset.to(torch.float32)
+        + scale_h * sqrt_d * inv_sqrt_d * ip_Wmu_2b1
+        + model.landmark_sq_norms[cl]
+        # minus d^-1/2 ||x-mu|| <W mu, 2b-1> - ||mu||^2  (Eq. 22 OFFSET)
+        - inv_sqrt_d * res_norm * ip_Wmu_2b1
+        - model.landmark_sq_norms[cl]
+    )
+    return scale * masked_add + query_compute + offset_terms[None, :]
+
+
 def score_l2(
     model: ASHModel, prep: QueryPrep, payload: ASHPayload,
     *, rowwise: bool = False,
@@ -181,3 +223,66 @@ def score_cosine(
     x_norm = torch.sqrt(torch.clamp(x_sq, min=_EPS))
     q_norm = torch.sqrt(torch.clamp(prep.q_sq_norm, min=_EPS))
     return ip_qx / (q_norm[:, None] * x_norm[None, :])
+
+
+# ---------------------------------------------------------------------------
+# Symmetric scoring (Appendix B) -- for graph-index construction
+# ---------------------------------------------------------------------------
+
+
+def score_symmetric_dot(
+    model: ASHModel, pa: ASHPayload, pb: ASHPayload
+) -> torch.Tensor:
+    """<x, y> for two encoded sets (C == 1 assumed per Appendix B):
+    (n_a, n_b), Eq. (B.2) with cosSim(quant(Wx~), quant(Wy~))."""
+    full_fp32()
+    Va, va_n, ra_n, ip_a_mu = recovered_terms(model, pa)
+    Vb, vb_n, rb_n, ip_b_mu = recovered_terms(model, pb)
+    cos = (Va @ Vb.T) / torch.clamp(va_n[:, None] * vb_n[None, :],
+                                    min=_EPS)
+    mu_sq = model.landmark_sq_norms[0]
+    return (
+        ra_n[:, None] * rb_n[None, :] * cos
+        + ip_a_mu[:, None]
+        + ip_b_mu[None, :]
+        - mu_sq
+    )
+
+
+# ---------------------------------------------------------------------------
+# Bias correction (Eq. 34)
+# ---------------------------------------------------------------------------
+
+
+def fit_bias(
+    model: ASHModel,
+    payload: ASHPayload,
+    X: torch.Tensor,
+    queries: torch.Tensor,
+    sample: int = 100,
+) -> ASHModel:
+    """Least-squares (rho, beta) so that rho*<q,x> + beta ~ <q, x^>.
+
+    Per the paper, a ~100-sample regression over the first ``sample``
+    queries and rows; the correction (:func:`debias`) divides the
+    estimate by rho after subtracting beta, for L2-faithful scores.
+    Returns a new model with ``bias_rho``/``bias_beta`` set.
+    """
+    full_fp32()
+    dev = model.device
+    qs = queries[:sample].to(device=dev, dtype=torch.float32)
+    xs = X[:sample].to(device=dev, dtype=torch.float32)
+    sub = ASHPayload(b=payload.b, d=payload.d, **{
+        f: getattr(payload, f)[:sample] for f in ASHPayload.ARRAY_FIELDS})
+    prep = prepare_queries(model, qs)
+    est = score_dot(model, prep, sub).reshape(-1)
+    true = (qs @ xs.T).reshape(-1)
+    A = torch.stack([true, torch.ones_like(true)], dim=1)
+    coef = torch.linalg.lstsq(A, est[:, None]).solution[:, 0]
+    return dataclasses.replace(model, bias_rho=coef[0], bias_beta=coef[1])
+
+
+def debias(model: ASHModel, scores: torch.Tensor) -> torch.Tensor:
+    """Apply the inverse linear correction to estimated dot products."""
+    return (scores - model.bias_beta) / torch.clamp(model.bias_rho,
+                                                    min=_EPS)

@@ -505,7 +505,8 @@ class ShardedState:
 class ShardedBackend:
     """Row shards over a list of devices, searched scatter-gather from
     one process (``distributed.search_shards``); results equal the flat
-    backend's, exact rerank included."""
+    backend's, except that exact rerank and the coarse shortlist run per
+    shard, as the reference's."""
 
     name = "sharded"
 

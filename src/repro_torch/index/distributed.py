@@ -27,13 +27,13 @@ per shard; on the CPU ``ref.merge_strip``).  The reference's
 ``lax.top_k`` over the gathered shards breaks ties by shard order, then
 by local rank: the same order.
 
-Exact rerank differs from the reference on purpose: each shard returns
-its top ``max(rerank, k)`` rows by ASH score, the merge keeps the global
-top ``max(rerank, k)``, and only that shortlist is reranked on the raw
-rows (gathered from their shards).  That is the flat backend's shortlist
-in the flat backend's order, so every result equals flat's.  The
-reference reranks each shard's shortlist on its own and merges, which
-surfaces a superset and may return other ids than flat.
+Exact rerank runs inside each shard, as the reference's: a shard's plan
+carries ``rerank`` and the shard's own raw rows, so it reranks its own
+top ``max(rerank, k_loc)`` rows by ASH score exactly, on its device, and
+returns its top ``k_loc`` by exact score; the merge then takes the
+global top-k of exact scores.  That reranks a superset of the flat
+backend's shortlist, so the exact score at every rank is at least
+flat's, and the ids may differ from flat's.
 
 ``coarse="int8"`` keeps its shortlist per shard, as the reference does:
 the result equals a merge of flat coarse searches over each shard's
@@ -228,47 +228,21 @@ def search_shards(shards: ShardSet, prep: QueryPrep, k: int, *,
         raise ValueError(
             "rerank on the sharded backend requires keep_raw=True "
             "(bf16 raw rows are sharded with the payload)")
-    n_total = sum(shards.n_valid)
-    depth = min(max(rerank, k), n_total) if rerank else k
-    dev0 = shards.devices[0]
     launched = []
     for s in range(len(shards)):  # every shard's scan launches first
         nv = shards.n_valid[s]
         if nv == 0:
             continue
         plan = C.ScanPlan(
-            metric=metric, k=min(depth, nv), row_valid=shards.valid[s],
-            use_kernel=use_kernel, coarse=coarse, shortlist=shortlist)
+            metric=metric, k=min(k, nv), rerank=rerank,
+            row_valid=shards.valid[s], use_kernel=use_kernel, coarse=coarse,
+            shortlist=shortlist)
         ls, li = C.execute_plan(
             shards.models[s], _prep_to(prep, shards.devices[s]),
             shards.payloads[s], plan, stats=shards.stats[s],
+            raw=shards.raw[s] if rerank else None,
             coarse_cache=shards.coarse[s])
         launched.append((s, ls, li))
     parts = [(ls, torch.where(li < 0, -1, li + s * shards.n_local))
              for s, ls, li in launched]
-    ss, rows = merge_shards(parts, depth, dev0)
-    if not rerank:
-        return ss, rows
-    return _exact_rerank(shards, _prep_to(prep, dev0), ss, rows, metric, k)
-
-
-def _exact_rerank(shards: ShardSet, prep, ss, rows, metric, k):
-    """Exact rerank of the merged global shortlist (m, R): each shard
-    contributes the raw rows it owns, then ``common.exact_rerank`` runs
-    on the first shard's device over the same (m, R, D) candidates, in
-    the same order, as the flat backend's."""
-    m, R = rows.shape
-    dev0 = shards.devices[0]
-    raw0 = next(r for r in shards.raw if r is not None)
-    cand = torch.zeros(m, R, raw0.shape[1], dtype=raw0.dtype, device=dev0)
-    owner = torch.where(rows >= 0, rows // shards.n_local, -1)
-    for s, raw in enumerate(shards.raw):
-        if raw is None:
-            continue
-        sel = owner == s
-        local = (rows[sel] - s * shards.n_local).to(raw.device).long()
-        cand[sel] = raw[local].to(dev0)
-    pos = torch.arange(m * R, dtype=torch.int32, device=dev0).reshape(m, R)
-    return C.exact_rerank(prep, cand.reshape(m * R, -1), ss,
-                          torch.where(rows < 0, -1, pos), metric, k,
-                          ids=rows.reshape(-1))
+    return merge_shards(parts, k, shards.devices[0])

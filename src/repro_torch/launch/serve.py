@@ -9,9 +9,11 @@ Counterpart of ``repro.launch.serve``, with the same flags plus
       --dim 256 --bits 2 --reduce 2 --landmarks 64 --queries 1000 \\
       --req-batch 8
 
-The index rows and the queries are one ``embedding_dataset(n + queries,
-dim, seed=--seed)`` draw on the device, the queries its last
-``--queries`` rows (:func:`dataset`); the model trains from
+The index rows and the queries are two independent ``embedding_dataset``
+draws on the device, as the reference's ``kx`` and ``kq`` keys split
+from ``--seed`` (:func:`dataset`): each draw makes its own covariance
+and cluster centers, so the queries come from their own distribution;
+the model trains from
 ``torch.Generator().manual_seed(--seed)``.  Requests of ``--req-batch``
 rows stream through a ``QueryEngine`` (flush-on-size/timeout, padded
 buckets, prep cache); the launcher reports build time, QPS, p50/p99
@@ -60,13 +62,27 @@ from repro_torch.serving.frontend import ServingFrontend
 from repro_torch.serving.wal import DurableIndex
 
 
+def stream_seed(seed: int, stream: int) -> int:
+    """The seed of draw ``stream`` of ``seed``: the splitmix64 finalizer
+    of ``4 * seed + stream``, cut to 63 bits (``torch.Generator`` takes
+    a non-negative int64).  Streams 1 and 2 are the index rows and the
+    queries, the reference's ``kx, kq = split(PRNGKey(seed), 3)[:2]``."""
+    z = (4 * seed + stream) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    return (z ^ (z >> 31)) >> 1
+
+
 def dataset(n: int, dim: int, queries: int, seed: int, device):
-    """(X, Q): ``n`` index rows and ``queries`` held-out query rows of
-    one seeded draw on ``device`` (a caller that re-creates the
-    launcher's data, e.g. to search a ``--save-dir`` index, calls
-    this)."""
-    data = embedding_dataset(n + queries, dim, seed=seed, device=device)
-    return data[:n], data[n:]
+    """(X, Q): ``n`` index rows and ``queries`` query rows on ``device``,
+    two independent ``embedding_dataset`` draws seeded with
+    ``stream_seed(seed, 1)`` and ``stream_seed(seed, 2)`` (a caller that
+    re-creates the launcher's data, e.g. to search a ``--save-dir``
+    index, calls this)."""
+    X = embedding_dataset(n, dim, seed=stream_seed(seed, 1), device=device)
+    Q = embedding_dataset(queries, dim, seed=stream_seed(seed, 2),
+                          device=device)
+    return X, Q
 
 
 def _where(dev: torch.device) -> str:

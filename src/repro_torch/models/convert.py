@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.moe import MoEParams
 from repro_torch.models.transformer import Layer, Transformer, TransformerConfig
 
 
@@ -32,7 +33,9 @@ def params_from_numpy(tree: dict, cfg: TransformerConfig, *,
                       device="cuda") -> Transformer:
     """The reference's ``init_params`` tree (numpy leaves) as the port's
     parameters; layer weights in ``cfg.param_dtype``, the ASH-KV
-    projections in fp32."""
+    projections and an MoE ``router`` (L, D, E) in fp32, the experts'
+    ``w_gate``/``w_up`` (L, E, D, F) and ``w_down`` (L, E, F, D) in
+    ``cfg.param_dtype``."""
     dev = resolve_device(device)
 
     def t(a, dtype):
@@ -40,9 +43,16 @@ def params_from_numpy(tree: dict, cfg: TransformerConfig, *,
 
     pd = cfg.param_dtype
     lay = tree["layers"]
-    names = Layer.NAMES + (Layer.BIAS_NAMES if cfg.qkv_bias else ())
+    names = (Layer.NAMES + (() if cfg.moe else Layer.FFN_NAMES)
+             + (Layer.BIAS_NAMES if cfg.qkv_bias else ()))
     layers = [{n: t(lay[n][i], pd) for n in names}
               for i in range(cfg.n_layers)]
+    if cfg.moe:
+        moe = lay["moe"]
+        for i, w in enumerate(layers):
+            w["moe"] = MoEParams({
+                n: t(moe[n][i], torch.float32 if n == "router" else pd)
+                for n in MoEParams.NAMES})
     kvq = tree.get("kv_quant")
     return Transformer(
         cfg, t(tree["embed"], pd), layers, t(tree["final_norm"], pd),

@@ -1,7 +1,7 @@
-"""Decoder-only transformer (dense, GQA, RoPE, SwiGLU) for serving.
+"""Decoder-only transformer (dense + MoE, GQA, RoPE, SwiGLU) for serving.
 
-Counterpart of ``repro.models.transformer`` for the dense
-architectures: ``init_params``, ``forward``/``prefill``, ``init_cache``
+Counterpart of ``repro.models.transformer``: ``init_params``,
+``forward``/``prefill``, ``init_cache``
 and ``decode_step`` with a bf16 KV cache or, with
 ``cfg.kv_quant_bits > 0``, an ASH-compressed one.  Keys and values are
 projected per KV head by a row-orthonormal matrix, quantized to b bits
@@ -15,17 +15,18 @@ never unpacks it into device memory.
 
 The parameters are an ``nn.Module`` with per-layer weights in the
 reference's layout (applied as ``x @ W``); the reference's layer scan is
-a Python loop.  Serving only: no remat, sharding constraints or MoE
-(a config with ``moe`` raises), and the cache is updated in place
-(``decode_step`` returns the same dict), since a copy of a 31 GB cache
-per step is not affordable.  Entry points run on ``device="cuda"``
+a Python loop.  With ``cfg.moe`` each layer's FFN is ``moe.moe_block``
+over the flattened tokens (``forward`` returns the summed router aux
+loss).  Serving only: no remat or sharding constraints, and the cache
+is updated in place (``decode_step`` returns the same dict), since a
+copy of a 31 GB cache per step is not affordable.  Entry points run on ``device="cuda"``
 unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional
+from typing import Optional
 
 import torch
 from torch import nn
@@ -34,6 +35,7 @@ from repro_torch.core import quantization as Q
 from repro_torch.device import full_fp32, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import common as cm
+from repro_torch.models.moe import MoEConfig, MoEParams, init_moe, moe_block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,18 +51,13 @@ class TransformerConfig:
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
     dtype: torch.dtype = torch.bfloat16  # activation dtype
     param_dtype: torch.dtype = torch.bfloat16
     q_chunk: int = 2048  # query chunking for long prefill (0 = off)
     # ASH-KV cache compression (0 = off -> bf16 cache)
     kv_quant_bits: int = 0
     kv_quant_dim: int = 0  # 0 -> d_head (no dim reduction)
-
-    def __post_init__(self):
-        if self.moe is not None:
-            raise NotImplementedError(
-                "MoE transformers are not ported yet (models/moe.py)")
 
     @property
     def head_dim(self) -> int:
@@ -70,11 +67,22 @@ class TransformerConfig:
     def code_dim(self) -> int:
         return self.kv_quant_dim or self.head_dim
 
-    def param_count(self) -> int:
+    def _count(self, experts: int) -> int:
         D, H, KV, dh = self.d_model, self.n_heads, self.n_kv_heads, self.head_dim
         attn = D * (H * dh) + 2 * D * (KV * dh) + (H * dh) * D
-        return (self.n_layers * (attn + 3 * D * self.d_ff + 2 * D)
-                + 2 * self.vocab * D + D)
+        if self.moe:
+            ffn = D * self.moe.n_experts + experts * 3 * D * self.moe.d_ff
+        else:
+            ffn = 3 * D * self.d_ff
+        return self.n_layers * (attn + ffn + 2 * D) + 2 * self.vocab * D + D
+
+    def param_count(self) -> int:
+        return self._count(self.moe.n_experts if self.moe else 0)
+
+    def active_param_count(self) -> int:
+        """6*N_active*D convention for MoE rooflines: the router and the
+        top-k experts of each layer."""
+        return self._count(self.moe.top_k if self.moe else 0)
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -82,20 +90,22 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
 
 
 class Layer(nn.Module):
-    """One decoder layer's weights (the reference's ``layers`` slice)."""
+    """One decoder layer's weights (the reference's ``layers`` slice);
+    an MoE layer holds ``moe`` (:class:`~repro_torch.models.moe.MoEParams`)
+    in place of ``w_gate``/``w_up``/``w_down``."""
 
-    NAMES = ("attn_norm", "ffn_norm", "wq", "wk", "wv", "wo", "w_gate",
-             "w_up", "w_down")
+    NAMES = ("attn_norm", "ffn_norm", "wq", "wk", "wv", "wo")
+    FFN_NAMES = ("w_gate", "w_up", "w_down")
     BIAS_NAMES = ("bq", "bk", "bv")
 
     def __init__(self, weights: dict):
         super().__init__()
         for name, t in weights.items():
-            setattr(self, name, _frozen(t))
+            setattr(self, name, t if isinstance(t, MoEParams) else _frozen(t))
 
 
 class Transformer(nn.Module):
-    """Parameters of a dense decoder: ``embed``, ``layers``,
+    """Parameters of a decoder: ``embed``, ``layers``,
     ``final_norm``, ``lm_head`` and, for an ASH-KV config, the per
     (layer, KV head) projections ``kv_Wk``/``kv_Wv`` (L, KV, dc, dh)
     fp32."""
@@ -141,9 +151,12 @@ def init_params(gen: torch.Generator, cfg: TransformerConfig, *,
             "ffn_norm": torch.ones(D, dtype=pd, device=dev),
             "wq": dense((D, H * dh)), "wk": dense((D, KV * dh)),
             "wv": dense((D, KV * dh)), "wo": dense((H * dh, D)),
-            "w_gate": dense((D, F)), "w_up": dense((D, F)),
-            "w_down": dense((F, D)),
         }
+        if cfg.moe:
+            w["moe"] = init_moe(gen, cfg.moe, D, dtype=pd, device=dev)
+        else:
+            w.update(w_gate=dense((D, F)), w_up=dense((D, F)),
+                     w_down=dense((F, D)))
         if cfg.qkv_bias:
             w["bq"] = torch.zeros(H * dh, dtype=pd, device=dev)
             w["bk"] = torch.zeros(KV * dh, dtype=pd, device=dev)
@@ -175,9 +188,15 @@ def _qkv(cfg: TransformerConfig, lp: Layer, h: torch.Tensor):
     return q, k, v
 
 
-def _ffn(cfg: TransformerConfig, lp: Layer, x: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: TransformerConfig, lp: Layer, x: torch.Tensor):
+    """x + FFN(norm(x)) and the layer's router aux loss (zero when
+    dense); an MoE FFN routes the flattened (tokens, D) rows."""
     h = cm.rms_norm(x, lp.ffn_norm, cfg.norm_eps)
-    return x + cm.swiglu(h @ lp.w_gate, h @ lp.w_up) @ lp.w_down
+    if cfg.moe:
+        out, aux = moe_block(lp.moe, h.reshape(-1, h.shape[-1]), cfg.moe)
+        return x + out.reshape(x.shape), aux
+    ffn = cm.swiglu(h @ lp.w_gate, h @ lp.w_up) @ lp.w_down
+    return x + ffn, torch.zeros((), device=x.device)
 
 
 def _layer(cfg: TransformerConfig, lp: Layer, x: torch.Tensor,
@@ -192,7 +211,7 @@ def _layer(cfg: TransformerConfig, lp: Layer, x: torch.Tensor,
     attn = cm.gqa_attention(q, k, v.reshape(B, S, KV, dh), causal=True,
                             q_chunk=cfg.q_chunk)
     x = x + attn.reshape(B, S, H * dh) @ lp.wo
-    return _ffn(cfg, lp, x)
+    return _ffn(cfg, lp, x)  # (x, aux)
 
 
 def _logits(params: Transformer, cfg: TransformerConfig, x: torch.Tensor):
@@ -203,13 +222,16 @@ def _logits(params: Transformer, cfg: TransformerConfig, x: torch.Tensor):
 @torch.no_grad()
 def forward(params: Transformer, tokens: torch.Tensor,
             cfg: TransformerConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B, S, V) fp32, aux loss (zero: dense model))."""
+    """Returns (logits (B, S, V) fp32, the router aux loss summed over
+    layers (zero for a dense model))."""
     S = tokens.shape[1]
     x = params.embed[tokens.long()].to(cfg.dtype)
     positions = torch.arange(S, device=x.device)
+    aux = torch.zeros((), device=x.device)
     for lp in params.layers:
-        x = _layer(cfg, lp, x, positions)
-    return _logits(params, cfg, x), torch.zeros((), device=x.device)
+        x, a = _layer(cfg, lp, x, positions)
+        aux = aux + a
+    return _logits(params, cfg, x), aux
 
 
 def prefill(params: Transformer, tokens: torch.Tensor,
@@ -353,5 +375,5 @@ def decode_step(params: Transformer, cache: dict, tokens: torch.Tensor,
                                   valid, use_kernel)
         else:
             attn = _bf16_attention(cfg, cache, l, q, k, v, cache_len, valid)
-        x = _ffn(cfg, lp, x + attn @ lp.wo)
+        x = _ffn(cfg, lp, x + attn @ lp.wo)[0]
     return _logits(params, cfg, x), cache

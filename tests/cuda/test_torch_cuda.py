@@ -16,6 +16,7 @@ scan EQUAL to the dense scan on the same (query, row) (one arithmetic
 order); the coarse kernels EQUAL to their plain versions (exact integer
 accumulation, one epilogue order).
 """
+import copy
 import dataclasses
 
 import numpy as np
@@ -877,6 +878,109 @@ def test_decode_step_on_card_matches_cpu(cuda, kv_quant_bits):
                                     use_kernel=False)
         torch.testing.assert_close(b2, b, rtol=1e-3,
                                    atol=1e-3 * b.abs().max().item())
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_scan_kernels_at_the_rabitq_shape(cuda, metric):
+    """Kernels 1 and 2 at RaBitQ's shape (b = 1, d = 256, C = 1): kernel
+    1 against its plain version, kernel 2 (one scan, one merge) EQUAL to
+    a stable top-k of kernel 1's scores."""
+    args = _args(256, 1, 256, 20000, 8, 1, metric, cuda)
+    got = TK.ash_score_cuda(*args, b=1, metric=metric)
+    want = TR.ash_score_metric_ref(*args, b=1, metric=metric)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+    before = dict(TK.launch_counts)
+    ts, ti = TK.ash_score_topk_cuda(*args, b=1, k=100, metric=metric)
+    torch.cuda.synchronize()
+    assert TK.launch_counts["ash_score_topk"] == before["ash_score_topk"] + 1
+    assert TK.launch_counts["ash_topk_merge"] == before["ash_topk_merge"] + 1
+    vs, vi = TR.stable_top_k(got, 100)
+    assert torch.equal(ts, vs) and torch.equal(ti, vi.to(torch.int32))
+
+
+@pytest.mark.parametrize("S,mask_from", [(77, 0), (1037, 1021), (2063, 5),
+                                         (4099, 700), (32768, 31000)])
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+def test_kv_attn_kernel_granite_shape(cuda, S, mask_from, scale_dtype):
+    """Kernel 7 at granite-moe-3b's head shape: d_code = d_head = 64,
+    G = 3, b = 4 for K and V, 8 KV heads; ragged S and leading masked
+    stretches."""
+    t = _kv_inputs(S + 64, 4, 4, 64, 64, S, (2, 8), 3, cuda,
+                   scale_dtype=scale_dtype, bias=False, mask_from=mask_from)
+    got, want = _kv_both(t, 4, 4)
+    _kv_close(got, want)
+
+
+def _moe_inputs(cfg, D, T, seed):
+    """MoE weights drawn on the CPU and tokens whose router top-k is
+    unambiguous (every gap down to the (k+1)-th probability above 1e-6,
+    far above fp32 products' differences), so both devices route
+    alike."""
+    from repro_torch.models import moe as TM
+
+    params = TM.init_moe(torch.Generator().manual_seed(seed), cfg, D)
+    router = params.router.double().numpy()
+    for s in range(seed, seed + 100):
+        x = np.random.default_rng(s).standard_normal((T, D)).astype(
+            np.float32)
+        lg = x.astype(np.float64) @ router
+        p = np.exp(lg - lg.max(1, keepdims=True))
+        p = -np.sort(-p / p.sum(1, keepdims=True), axis=1)
+        if (p[:, :cfg.top_k] - p[:, 1:cfg.top_k + 1]).min() > 1e-6:
+            return params, torch.from_numpy(x)
+    raise AssertionError("no draw with an unambiguous top-k")
+
+
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.5])
+def test_moe_block_on_card_matches_cpu(cuda, capacity_factor):
+    """``moe_block`` on the card (float32) against the same block on the
+    CPU: the same slots, outputs within 1e-5 of the largest |value|."""
+    from repro_torch.models import moe as TM
+
+    cfg = TM.MoEConfig(n_experts=40, top_k=8, d_ff=64, group_size=64,
+                       capacity_factor=capacity_factor)
+    params, x = _moe_inputs(cfg, 96, 128, 5)
+    want, aux = TM.moe_block(params, x, cfg)
+    p_gpu = copy.deepcopy(params).to(cuda)  # Module.to moves in place
+    got, aux_g = TM.moe_block(p_gpu, x.to(cuda), cfg)
+    _, _, te = TM.route(params, x, cfg)
+    _, _, te_g = TM.route(p_gpu, x.to(cuda), cfg)
+    assert torch.equal(te_g.cpu(), te)
+    assert torch.equal(TM.slots(te_g, cfg, 64)[0].cpu(),
+                       TM.slots(te, cfg, 64)[0])
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+    torch.testing.assert_close(aux_g.cpu(), aux, rtol=1e-5, atol=0)
+
+
+def test_moe_decode_step_on_card_matches_cpu(cuda):
+    """A 2-layer float32 MoE model (G = 3, 8 experts top-2) decoding 10
+    steps on the card through kernel 7 against the CPU, as the dense
+    model's test."""
+    from repro_torch.kernels import ash_kv_attn as KA
+    from repro_torch.models import moe as TM
+    from repro_torch.models import transformer as TT
+
+    cfg = TT.TransformerConfig(
+        name="t", n_layers=2, d_model=96, n_heads=6, n_kv_heads=2,
+        d_ff=64, vocab=96, dtype=torch.float32, param_dtype=torch.float32,
+        q_chunk=0, kv_quant_bits=4,
+        moe=TM.MoEConfig(n_experts=8, top_k=2, d_ff=32))
+    p_cpu = TT.init_params(torch.Generator().manual_seed(0), cfg,
+                           device="cpu")
+    p_gpu = TT.init_params(torch.Generator().manual_seed(0), cfg,
+                           device="cpu").to(cuda)
+    c_cpu = TT.init_cache(cfg, 3, 16, device="cpu")
+    c_gpu = TT.init_cache(cfg, 3, 16, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 96, (3, 10)))
+    KA.reset_launch_counts()
+    for t in range(10):
+        a, c_cpu = TT.decode_step(p_cpu, c_cpu, toks[:, t], t, cfg)
+        b, c_gpu = TT.decode_step(p_gpu, c_gpu, toks[:, t].to(cuda), t, cfg)
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-3,
+                                   atol=1e-3 * a.abs().max().item())
+    assert KA.launch_counts["ash_kv_attn"] == 10 * cfg.n_layers
 
 
 # -- the serving engine on the card ----------------------------------------

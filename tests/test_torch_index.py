@@ -253,6 +253,11 @@ def test_port_never_imports_jax_or_reference():
         assert REPO / "src" / "repro_torch" / "serving" / f"{mod}.py" in files
     assert REPO / "src" / "repro_torch" / "launch" / "serve.py" in files
     assert REPO / "src" / "repro_torch" / "testing" / "faults.py" in files
+    for mod in ("pq", "lopq", "eden", "leanvec", "rabitq"):
+        assert REPO / "src" / "repro_torch" / "baselines" / f"{mod}.py" in files
+    assert REPO / "src" / "repro_torch" / "models" / "moe.py" in files
+    assert REPO / "src" / "repro_torch" / "configs" / "granite_moe_3b.py" \
+        in files
     for f in files:
         bad = _imports(f) & {"jax", "jaxlib", "repro"}
         assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"

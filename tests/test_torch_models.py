@@ -217,8 +217,3 @@ def test_bf16_decode_error_within_reference_error(kv):
     fj32, _ = JT.forward(pj32, jnp.asarray(toks2), cj32)
     assert (np.abs(f16.numpy() - np.asarray(fj32)).max()
             <= 2.0 * np.abs(np.asarray(fj16) - np.asarray(fj32)).max())
-
-
-def test_moe_config_refused():
-    with pytest.raises(NotImplementedError):
-        TT.TransformerConfig(**BASE, moe=object())

@@ -3,8 +3,9 @@ on the CPU at a tiny size (``--device cpu``): the sequential stream and
 its printed recall against direct search of the saved index, a WAL run
 and its recovery, the concurrent mode with background compaction, the
 sharded and tiered backends, the HTTP API against direct search, the
-isotropy diagnostics against the JAX package, and the refusal to run on
-the CPU unasked.
+isotropy diagnostics against the JAX package, the data's two
+independent draws (index rows and queries, as the reference's two keys),
+and the refusal to run on the CPU unasked.
 """
 import json
 import re
@@ -22,7 +23,9 @@ from repro.data.synthetic import (  # noqa: E402
     isotropy_diagnostics as j_isotropy,
 )
 from repro_torch.core.types import ASHConfig  # noqa: E402
-from repro_torch.data.synthetic import isotropy_diagnostics  # noqa: E402
+from repro_torch.data.synthetic import (  # noqa: E402
+    embedding_dataset, isotropy_diagnostics,
+)
 from repro_torch.index import AshIndex, recall_curve  # noqa: E402
 from repro_torch.index import metrics as MET  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -132,6 +135,23 @@ def test_isotropy_diagnostics_match_reference():
     assert got.keys() == want.keys()
     for key in want:  # fp32 norms and products in another order
         assert got[key] == pytest.approx(want[key], rel=1e-5, abs=1e-6)
+
+
+def test_dataset_queries_are_an_independent_draw():
+    X, Q = serve.dataset(500, 16, 40, 7, "cpu")
+    assert X.shape == (500, 16) and Q.shape == (40, 16)
+    qs = serve.stream_seed(7, 2)
+    assert len({serve.stream_seed(7, 1), qs, serve.stream_seed(8, 1),
+                serve.stream_seed(8, 2)}) == 4 and 0 <= qs < 2**63
+    assert torch.equal(X, embedding_dataset(500, 16, device="cpu",
+                                            seed=serve.stream_seed(7, 1)))
+    assert torch.equal(Q, embedding_dataset(40, 16, device="cpu", seed=qs))
+    # not held-out rows of one draw of n + queries rows
+    for seed in (7, serve.stream_seed(7, 1)):
+        one = embedding_dataset(540, 16, device="cpu", seed=seed)
+        assert not torch.equal(one[500:], Q)
+    # its own covariance and centers: another mean than X's
+    assert float((Q.mean(0) - X.mean(0)).abs().max()) > 0.1
 
 
 def test_main_refuses_the_cpu_unasked(monkeypatch):

@@ -4,19 +4,21 @@
   shards on the CPU (``mesh=[cpu] * S``: several logical shards on one
   device, every per-shard code path but the copy between cards), every
   metric, k below and above the shard size (the fused and the
-  materializing route), exact rerank (the merged global shortlist is
-  reranked, so the result is flat's), ``use_kernel=False``, a covering
+  materializing route), ``use_kernel=False``, a covering
   coarse shortlist, a padded last shard (n = 1000 over 3 shards pads 2
   rows), tombstones, add and compact, and a query alone against its
   row of the batch.
-* **Coarse** keeps its shortlist per shard: EQUAL to a merge computed
-  without the backend, a flat coarse search over ``from_parts`` of each
-  shard's rows alone, then a stable top-k of the union.
+* **Coarse and exact rerank** run per shard, as the reference's: EQUAL
+  to a merge computed without the backend, a flat coarse or rerank
+  search over ``from_parts`` of each shard's rows alone (its raw rows,
+  its tombstones), then a stable top-k of the union.  Rerank reranks a
+  superset of flat's shortlist, so its exact score at every rank is at
+  least flat's.
 * **Against the JAX package's sharded backend** on its 4 virtual CPU
   devices, from the same model and payload: ids equal, scores at the
   tolerance of ``tests/test_torch_index.py`` (rtol 1e-5, atol 1e-5
   times their scale); indexes saved by either package load into the
-  other with the same ids.  The JAX package's own sharded-vs-flat
+  other with the same ids, rerank included.  The JAX package's own sharded-vs-flat
   equality fails at the last ulp (ROADMAP "JAX reference failures"), so
   the port's equality is proved here against the port's flat backend.
 * The pieces: padding and row shards, the merge's order, rerank without
@@ -93,12 +95,57 @@ SEARCHES = (
     dict(k=10),
     dict(k=100),  # the fused route on every shard
     dict(k=300),  # above every shard of 4 (n_local 250) and the fused cap
-    dict(k=10, rerank=64),
-    dict(k=100, rerank=256),
     dict(k=10, use_kernel=False),
-    dict(k=10, rerank=64, use_kernel=False),
     dict(k=10, coarse="int8", shortlist=N),  # covering: equals coarse=None
 )
+RERANKS = (
+    dict(k=10, rerank=64),
+    dict(k=100, rerank=256),
+    dict(k=10, rerank=64, use_kernel=False),
+)
+
+
+def _shard_merge(flat, S, Q, k, **kw):
+    """Flat searches over each shard's rows alone (its raw rows and
+    tombstones), merged by a stable top-k of the union: global rows =
+    shard offset + local, then the flat index's ids."""
+    st = flat._state
+    pay = flat.payload
+    nl = -(-pay.n // S)
+    vals, rows = [], []
+    for s in range(S):
+        r0, r1 = s * nl, min((s + 1) * nl, pay.n)
+        if r1 <= r0:
+            continue
+        part = ASHPayload(b=pay.b, d=pay.d, **{
+            f: getattr(pay, f)[r0:r1] for f in ASHPayload.ARRAY_FIELDS})
+        one = AshIndex.from_parts(
+            flat.model, part, metric=flat.metric,
+            raw=None if st.raw is None else st.raw[r0:r1])
+        if st.live is not None:
+            one.delete(torch.nonzero(~st.live[r0:r1])[:, 0].tolist())
+        v, i = one.search(Q, k=min(k, r1 - r0), **kw)
+        vals.append(v)
+        rows.append(torch.where(i < 0, -1, i + r0))
+    v, i = torch.cat(vals, 1), torch.cat(rows, 1)
+    # a stable sort by row, then by score: (score desc, row asc)
+    o = torch.sort(torch.where(i < 0, 2**31 - 1, i), dim=1,
+                   stable=True).indices
+    v, i = v.gather(1, o), i.gather(1, o)
+    o = torch.sort(v, dim=1, descending=True, stable=True).indices[:, :k]
+    v, i = v.gather(1, o), i.gather(1, o)
+    if st.ids is not None:
+        i = torch.where(i < 0, -1, st.ids[i.clamp(min=0).long()])
+    return v, i
+
+
+def _rerank_checks(got, flat, S, Q, kw, msg):
+    """Sharded rerank: EQUAL to the per-shard merge, and an exact score
+    at every rank at least flat's (a superset was reranked)."""
+    _equal(got, _shard_merge(flat, S, Q, **kw), msg)
+    want = flat.search(Q, **kw)
+    assert torch.isfinite(want[0]).all()
+    assert (got[0] >= want[0]).all(), msg
 
 
 @pytest.mark.parametrize("metric", METRICS)
@@ -117,6 +164,14 @@ def test_sharded_equals_flat(data, metric, S):
         # a query alone equals its row of the batch
         _equal(sh.search(Q[4:5], **kw), tuple(t[4:5] for t in want),
                (S, kw, "alone"))
+    for kw in RERANKS:
+        got = sh.search(Q, **kw)
+        _rerank_checks(got, flat, S, Q, kw, (S, kw))
+        _equal(sh.search(Q[4:5], **kw), tuple(t[4:5] for t in got),
+               (S, kw, "alone"))
+    if S == 1:  # one shard is the flat backend
+        for kw in RERANKS:
+            _equal(sh.search(Q, **kw), flat.search(Q, **kw), kw)
     prep = sh.prepare(Q)
     _equal(sh.search_prepped(prep, k=10), flat.search_prepped(prep, k=10))
 
@@ -127,53 +182,31 @@ def test_sharded_mutations_equal_flat(data, S):
     flat = _flat(data, "l2")
     sh = _sharded(flat, S)
     Q = torch.from_numpy(Qm)
-    kws = (dict(k=10), dict(k=100), dict(k=10, rerank=64),
-           dict(k=10, use_kernel=False))
+    kws = (dict(k=10), dict(k=100), dict(k=10, use_kernel=False))
+    rr = dict(k=10, rerank=64)
     victims = np.concatenate([np.arange(0, N, 97), [5, 999, 4242]])
     assert sh.delete(victims) == flat.delete(victims) == 13
     assert sh.n_dead == flat.n_dead == 13
     for kw in kws:
         _equal(sh.search(Q, **kw), flat.search(Q, **kw), ("deleted", kw))
+    _rerank_checks(sh.search(Q, **rr), flat, S, Q, rr, "deleted")
     new = torch.from_numpy(X[N:N + 37])
     sh.add(new)
     flat.add(new)
     assert sh.next_id == flat.next_id == N + 37
     for kw in kws:
         _equal(sh.search(Q, **kw), flat.search(Q, **kw), ("added", kw))
+    _rerank_checks(sh.search(Q, **rr), flat, S, Q, rr, "added")
     sh.compact()
     flat.compact()
     assert sh.n == flat.n == N + 37 - 13 and sh.n_dead == 0
     for kw in kws:
         _equal(sh.search(Q, **kw), flat.search(Q, **kw), ("compacted", kw))
+    _rerank_checks(sh.search(Q, **rr), flat, S, Q, rr, "compacted")
     sh.add(new[:3])
     flat.add(new[:3])
     assert sh.next_id == flat.next_id == N + 40
     _equal(sh.search(Q, k=10), flat.search(Q, k=10))
-
-
-def _coarse_merge(flat, S, Q, k, **kw):
-    """Flat coarse searches over each shard's rows alone, merged by a
-    stable top-k of the union (global ids = shard offset + local)."""
-    pay = flat.payload
-    nl = -(-pay.n // S)
-    vals, ids = [], []
-    for s in range(S):
-        r0, r1 = s * nl, min((s + 1) * nl, pay.n)
-        if r1 <= r0:
-            continue
-        part = ASHPayload(b=pay.b, d=pay.d, **{
-            f: getattr(pay, f)[r0:r1] for f in ASHPayload.ARRAY_FIELDS})
-        one = AshIndex.from_parts(flat.model, part, metric=flat.metric)
-        v, i = one.search(Q, k=min(k, r1 - r0), coarse="int8", **kw)
-        vals.append(v)
-        ids.append(torch.where(i < 0, -1, i + r0))
-    v, i = torch.cat(vals, 1), torch.cat(ids, 1)
-    # a stable sort by id, then by score: (score desc, id asc)
-    o = torch.sort(torch.where(i < 0, 2**31 - 1, i), dim=1,
-                   stable=True).indices
-    v, i = v.gather(1, o), i.gather(1, o)
-    o = torch.sort(v, dim=1, descending=True, stable=True).indices[:, :k]
-    return v.gather(1, o), i.gather(1, o)
 
 
 @pytest.mark.parametrize("S", (1, 2, 3, 4))
@@ -185,9 +218,9 @@ def test_sharded_coarse_equals_per_shard_merge(data, S):
         sh = _sharded(flat, S)
         for kw in (dict(), dict(shortlist=64)):
             _equal(sh.search(Q, k=10, coarse="int8", **kw),
-                   _coarse_merge(flat, S, Q, 10, **kw), (metric, S, kw))
+                   _shard_merge(flat, S, Q, 10, coarse="int8", **kw), (metric, S, kw))
         _equal(sh.search(Q, k=10, coarse="int8", use_kernel=False),
-               _coarse_merge(flat, S, Q, 10, use_kernel=False))
+               _shard_merge(flat, S, Q, 10, coarse="int8", use_kernel=False))
 
 
 def test_padding_shards_and_merge(data):
@@ -254,7 +287,7 @@ def test_sharded_matches_jax_and_cross_loads(data, metric, tmp_path):
     X, Qm, ji, _ = data
     js = _jax_sharded(ji, metric)
     ts = _sharded(_flat(data, metric), 4)
-    for kw in (dict(k=10), dict(k=100), dict(k=300)):
+    for kw in (dict(k=10), dict(k=100), dict(k=300), dict(k=10, rerank=64)):
         jsc, jids = js.search(jnp.asarray(Qm), **kw)
         tsc, tids = ts.search(torch.from_numpy(Qm), **kw)
         np.testing.assert_array_equal(tids.numpy(), np.asarray(jids), kw)
@@ -281,8 +314,10 @@ def test_sharded_matches_jax_and_cross_loads(data, metric, tmp_path):
 
 def test_port_save_load_bit_identical(data, tmp_path):
     _, Qm, _, _ = data
-    sh = _sharded(_flat(data, "cos"), 3)
+    flat = _flat(data, "cos")
+    sh = _sharded(flat, 3)
     sh.delete([1, 2, 3])
+    flat.delete([1, 2, 3])
     sh.save(tmp_path / "s")
     meta = json.loads((tmp_path / "s" / "config.json").read_text())
     assert meta["backend"] == "sharded"
@@ -291,8 +326,11 @@ def test_port_save_load_bit_identical(data, tmp_path):
         back = AshIndex.load(tmp_path / "s", device="cpu", mesh=mesh)
         assert len(back._state.devices) == (1 if mesh is None else len(mesh))
         Q = torch.from_numpy(Qm)
-        for kw in (dict(k=10), dict(k=10, rerank=50)):
-            _equal(back.search(Q, **kw), sh.search(Q, **kw), (mesh, kw))
+        _equal(back.search(Q, k=10), sh.search(Q, k=10), mesh)
+        # rerank runs per shard: the loaded placement's own merge
+        S = len(back._state.devices)
+        _equal(back.search(Q, k=10, rerank=50),
+               _shard_merge(flat, S, Q, k=10, rerank=50), mesh)
 
 
 def test_engine_tickets_equal_direct(data):
