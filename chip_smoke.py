@@ -212,7 +212,42 @@ for exact rerank.  Phases, one line each:
      without the free-running plain route (a step costs ~165 ms of host
      time), with the share of (token, layer) top-8 routings the kernel
      route changes (prefill reported, not gated: capacity drops follow
-     the batch).
+     the batch);
+  20. LM training (``repro_torch.train``, run right after phase 19 on
+     the memory it frees; no kernel of the ``kernels`` line runs here:
+     training's products are cuBLAS and its attention the plain fp32
+     einsums, as the reference's jnp): 20a llama3.2-3B at all 28 layers
+     and full widths, bf16, remat, in the ``train_4k`` cell's seq 4096
+     with its TrainConfig (AdamW, fp32 moments, 2 microbatches) at a
+     global batch of 2 (the cell's 256, cut: one sequence a
+     microbatch), 8 steps on the TokenStream (the first is warm-up),
+     then 3 under deterministic algorithms (their cost), and a profiled
+     step (bf16 cuBLAS, the fp32 attention's cuBLAS, the optimizer's
+     range, the rest, the idle share); step p50/p99 (CUDA events),
+     tokens/s, the model-FLOP share at 989 TFLOP/s (H100 SXM dense bf16)
+     and the peak memory; gates: every loss and grad norm finite, step
+     1's loss (less its microbatches' router aux for an MoE model)
+     within 1.0 of ln V + 1/2, the step count, every leaf's
+     first moment non-zero and every leaf changed but bf16 norm scales
+     (the warmup's updates are below half their ulp); 20b granite-moe-3b
+     at all 32 layers, 4 steps at a global batch of 4 in its 4
+     microbatches, 20a's gates plus a finite, positive router aux loss; 20c the
+     reduced llama and granite (fp32) on the card against the CPU, 3
+     steps each of AdamW, Adafactor (b1 = 0.9; b1 = 0 with bf16
+     moments), Muon and AdamW with 2-bit compression (the same signs):
+     losses to 1e-4 relative, parameters within twice the summed
+     learning rates and to 1e-6 but for at most 1 % of the elements
+     (AdamW's m/sqrt(v) where the clipped |g| is near eps; not with
+     compression, where a code flipping at a midpoint moves its block),
+     and the round trip at 1, 2, 4 bits on 10^6 elements (codes EQUAL
+     off midpoints, outputs to 1e-5 of the largest); 20d restart: in process
+     under deterministic algorithms, save at step 3, three more steps,
+     restore and replay (losses EQUAL as fp32 bits), then
+     ``python -m repro_torch.launch.train --reduced`` on the card as a
+     child process: ``--die-at-step 5`` exits 42; the rerun, through the
+     same ``main`` in this process, resumes from step 4 (``[restore]
+     resumed from step 4``, step 5's line equal to the first run's) and
+     returns 0.
 
 The kernels line's launches add those of phases 14-15's own searches,
 phase 16's engine traffic and recovered-index searches, the launches
@@ -222,8 +257,11 @@ Any failed check raises; the script exits 0 only when every phase
 passed.  The last line is ``{"ok": true, "device": {...}}``.  Detailed
 results go to ``chiprun_out/chip_smoke.json``.
 """
+import contextlib
 import dataclasses
+import io
 import json
+import os
 import pathlib
 import shutil
 import subprocess
@@ -2840,6 +2878,439 @@ def granite_phase(results, dev):
                                "bound_share")})
 
 
+# -- LM training (phase 20) --------------------------------------------------
+# llama3.2-3B and granite-moe-3b at full width and depth through
+# repro_torch.train (the train_4k cell's seq 4096), the card against the
+# CPU on the reduced archs, and restart bit for bit.  No kernel of the
+# kernels line runs here: training's products are cuBLAS, its attention
+# the plain fp32 einsums of models.common.gqa_attention, as the
+# reference's jnp.
+TRAIN_SEQ = 4096  # the train_4k cell
+# (arch id, global batch, steps): the cell's batch of 256 is cut to one
+# sequence a microbatch (the state of 3.6 B parameters takes 57.7 GB)
+TRAIN_RUNS = (("llama3.2-3b", 2, 8), ("granite-moe-3b-a800m", 4, 4))
+TRAIN_DET_STEPS = 3  # 20a: steps again under deterministic algorithms
+TRAIN_SAMPLE = 1 << 20  # elements of each leaf kept to see it change
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+# 20c: the reduced archs, card against CPU, 3 steps a variant
+TRAIN_VARIANTS = (
+    ("adamw", dict(name="adamw"), None),
+    ("adafactor", dict(name="adafactor"), None),
+    ("adafactor_b1_0_bf16", dict(name="adafactor", b1=0.0,
+                                 moment_dtype="bfloat16"), None),
+    ("muon", dict(name="muon"), None),
+    ("adamw_2bit", dict(name="adamw"), 2),
+)
+TRAIN_SMALL_BATCH, TRAIN_SMALL_SEQ, TRAIN_SMALL_STEPS = 4, 64, 3
+TRAIN_LAUNCH_TIMEOUT = 300
+TRAIN_LAUNCH_DEVICE = "cuda"
+
+
+def train_profile(step, labels):
+    """One ``step()`` under torch.profiler: device ms by group (bf16
+    cuBLAS, fp32 cuBLAS = the attention einsums, the optimizer's range,
+    the rest), busy and wall ms, the idle share, the busiest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ka = prof.key_averages()
+    cuda_t = torch.autograd.DeviceType.CUDA
+    dev_us = {e.key: e.self_device_time_total for e in ka
+              if e.device_type == cuda_t and e.self_device_time_total > 0
+              and e.key not in labels}
+    ranges = {e.key: e.device_time_total / 1e3 for e in ka
+              if e.key in labels and e.device_type != cuda_t}
+    groups = {"cublas_bf16": 0.0, "cublas_fp32_attention": 0.0,
+              "optimizer": ranges.get("train.optimizer", 0.0), "other": 0.0}
+    for name, us in dev_us.items():
+        low = name.lower()
+        if any(w in low for w in ("gemm", "xmma", "cutlass", "gemv",
+                                  "splitk", "nvjet")):
+            fp32 = any(w in low for w in ("sgemm", "f32f32", "_sss",
+                                          "simt", "fp32"))
+            groups["cublas_fp32_attention" if fp32 else "cublas_bf16"] += \
+                us / 1e3
+        else:
+            groups["other"] += us / 1e3
+    busy_ms = sum(dev_us.values()) / 1e3
+    groups["other"] = max(groups["other"] - groups["optimizer"], 0.0)
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_idle_share=(1 - busy_ms / wall_ms) if busy_ms
+                else None,
+                device_ms_by_group=groups, range_device_ms=ranges,
+                top_device_ms={k[:90]: v / 1e3 for k, v in top})
+
+
+def _leaf_samples(tree):
+    """A strided sample of at most TRAIN_SAMPLE elements of each leaf."""
+    import torch
+
+    from repro_torch.train import optim as TO
+
+    out = []
+    for leaf in TO.tree_leaves(tree):
+        flat = leaf.detach().reshape(-1)
+        out.append(flat[::max(1, flat.numel() // TRAIN_SAMPLE)].clone())
+    return out
+
+
+def train_full(arch_id, batch, steps, dev, det_steps=0):
+    """Train ``arch_id`` at full width with its TrainConfig: ``steps``
+    steps (the first is warm-up) on the TokenStream, then ``det_steps``
+    more under deterministic algorithms; a profiled step.  Running out
+    of memory fails the phase."""
+    import functools
+    import math
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import IteratorState, TokenStream
+    from repro_torch.models import transformer as TT
+    from repro_torch.train import optim as TO
+    from repro_torch.train import trainer as TTR
+
+    arch = registry.get(arch_id)
+    cfg, tcfg = arch.cfg, arch.train_cfg
+    t_run = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, t_init = sync_time(TT.init_params, torch.Generator(
+        device=dev).manual_seed(20), cfg, device=dev)
+    state = TTR.init_state(20, params, tcfg)
+    before = _leaf_samples(params.tree)
+    step_fn = TTR.make_train_step(functools.partial(TT.loss_fn, cfg=cfg),
+                                  tcfg)
+    stream = TokenStream(IteratorState(seed=20), batch, TRAIN_SEQ,
+                         cfg.vocab)
+    first = stream.next()
+    # the router aux of the first step's microbatches (one sequence
+    # each), so that step 1's CE can be told from its loss
+    aux0 = 0.0
+    if cfg.moe:
+        with torch.no_grad():
+            aux0 = sum(float(TT.forward(params, first["tokens"][r:r + 1]
+                                        .to(dev), cfg)[1])
+                       for r in range(batch)) / batch
+    ms, losses, gnorms = [], [], []
+    try:
+        for i in range(steps + det_steps):
+            if i == steps:
+                torch.use_deterministic_algorithms(True)
+            b = first if i == 0 else stream.next()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step_fn(state, b)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    t_steps = time.perf_counter() - t_run
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    after = _leaf_samples(params.tree)
+    paths = [p for p, _ in TT.train_leaves(params)]
+    unchanged = ["/".join(p) for p, a, b in zip(paths, after, before)
+                 if torch.equal(a, b)]
+    mu_zero = ["/".join(p) for p, m in zip(paths, TO.tree_leaves(
+        state.opt_state.mu)) if not bool(m.abs().amax() > 0)]
+    norms = {"/".join(p) for p in paths if p[-1].endswith("norm")}
+    check(all(map(math.isfinite, losses + gnorms)),
+          f"{arch_id}: a loss or grad norm is not finite")
+    # random weights give N(0, 1) logits: a CE of ln V + 1/2; an MoE
+    # model's loss adds the router aux of its microbatches
+    ln_v = math.log(cfg.vocab) + 0.5
+    check(abs(losses[0] - aux0 - ln_v) < 1.0,
+          f"{arch_id}: step 1 loss {losses[0]} - aux {aux0} vs ln V + 1/2 "
+          f"= {ln_v}")
+    check(int(state.step) == steps + det_steps, f"{arch_id}: step")
+    # bf16 norm scales of 1.0 move only by updates of half a bf16 ulp
+    # (2^-9), far above the warmup's lr (3e-4 * step / 100): those may
+    # stay; every other leaf must change, and every leaf's first moment
+    # must be non-zero (the optimizer reached it)
+    check(not set(unchanged) - norms and not mu_zero,
+          f"{arch_id}: unchanged leaves {unchanged}, zero moments {mu_zero}")
+    timed = sorted(ms[1:steps])
+    p50 = pct(timed, 50)
+    tokens = batch * TRAIN_SEQ
+    n_params = cfg.param_count()
+    n_active = cfg.active_param_count()
+    # the parameters of matrix products: the embedding table is a lookup
+    n_matmul = n_active - cfg.vocab * cfg.d_model
+    row = dict(
+        arch=arch_id, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        vocab=cfg.vocab, seq=TRAIN_SEQ, batch=batch,
+        microbatches=tcfg.microbatches, optimizer=tcfg.opt.name,
+        moment_dtype=str(tcfg.opt.moment_dtype), remat=cfg.remat,
+        params=n_params, active_params=n_active, matmul_params=n_matmul,
+        init_s=t_init,
+        steps=steps, losses=losses, step1_aux=aux0, grad_norms=gnorms,
+        step_ms=ms,
+        step_p50_ms=p50, step_p99_ms=pct(timed, 99),
+        tokens_per_s=tokens / (p50 / 1e3),
+        model_flop_share=6 * n_matmul * tokens / (p50 / 1e3)
+        / PEAK_BF16_FLOPS,
+        peak_mem_gb=peak_gb, unchanged_leaves=unchanged)
+    if det_steps:
+        det = sorted(ms[steps + 1:])
+        row.update(deterministic_step_p50_ms=pct(det, 50),
+                   deterministic_cost=pct(det, 50) / p50 - 1)
+    b = stream.next()
+    t_prof = time.perf_counter()
+    row["profile"] = train_profile(
+        lambda: step_fn(state, b),
+        ("train.forward_backward", "train.compression", "train.optimizer"))
+    row.update(steps_seconds=t_steps,
+               profile_seconds=time.perf_counter() - t_prof)
+    if cfg.moe:
+        with torch.no_grad():
+            _, aux = TT.forward(params, b["tokens"][:1].to(dev), cfg)
+        row["aux_loss"] = float(aux)
+        check(math.isfinite(row["aux_loss"]) and row["aux_loss"] > 0,
+              f"{arch_id}: aux loss {row['aux_loss']}")
+    del params, state, step_fn
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_card_vs_cpu(dev):
+    """20c: the reduced llama and granite (fp32) for TRAIN_SMALL_STEPS
+    steps of each variant on the card and on the CPU from the same
+    weights and batches (compression's signs come from CPU generators:
+    the same on both): losses to rtol 1e-4; parameters within twice the
+    summed learning rates, and to 1e-6 but for at most 1 % of the
+    elements (AdamW's m/sqrt(v) where the clipped |g| is near eps),
+    except with compression, where a code that flips at a midpoint
+    moves its whole 2048-wide block after the unrotation (the elements
+    past 1e-6 are reported; the round trip itself is held by
+    :func:`compression_card_vs_cpu`)."""
+    import functools
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import train as TL
+    from repro_torch.models import convert
+    from repro_torch.models import transformer as TT
+    from repro_torch.train import optim as TO
+    from repro_torch.train import trainer as TTR
+    from repro_torch.train.compression import CompressionConfig
+
+    out = {}
+    for arch_id in ("llama3.2-3b", "granite-moe-3b-a800m"):
+        arch = TL.reduced_arch(registry.get(arch_id))
+        cfg = arch.cfg
+        for name, opt, bits in TRAIN_VARIANTS:
+            opt = {k: getattr(torch, v) if k == "moment_dtype" else v
+                   for k, v in opt.items()}
+            tcfg = dataclasses.replace(
+                arch.train_cfg,
+                opt=dataclasses.replace(arch.train_cfg.opt, **opt),
+                compression=CompressionConfig(bits=bits or 2,
+                                              enabled=bits is not None))
+            p_cpu = TT.init_params(torch.Generator().manual_seed(21), cfg,
+                                   device="cpu")
+            p_dev = convert.params_from_numpy(convert.params_to_numpy(p_cpu),
+                                              cfg, device=dev)
+            runs = []
+            for params in (p_cpu, p_dev):
+                state = TTR.init_state(21, params, tcfg)
+                step = TTR.make_train_step(
+                    functools.partial(TT.loss_fn, cfg=cfg), tcfg)
+                stream = TL.make_stream(arch, TRAIN_SMALL_BATCH,
+                                        TRAIN_SMALL_SEQ, 21)
+                losses = []
+                for _ in range(TRAIN_SMALL_STEPS):
+                    state, m = step(state, stream.next())
+                    losses.append(float(m["loss"]))
+                runs.append((losses, [t.detach().cpu() for t in
+                                      TO.tree_leaves(params.tree)]))
+            (l_cpu, t_cpu), (l_dev, t_dev) = runs
+            lr_sum = sum(TO.lr_at(tcfg.opt, s)
+                         for s in range(1, TRAIN_SMALL_STEPS + 1))
+            diff = [(a - b).abs() for a, b in zip(t_dev, t_cpu)]
+            beyond = sum(int((d > 1e-6).sum()) for d in diff)
+            total = sum(d.numel() for d in diff)
+            worst = max(float(d.max()) for d in diff)
+            rel = max(abs(a - b) / abs(b) for a, b in zip(l_dev, l_cpu))
+            row = dict(loss_rel=rel, param_max_abs=worst,
+                       beyond_1e6=beyond, elements=total, lr_sum=lr_sum,
+                       losses=l_dev)
+            out[f"{arch_id}/{name}"] = row
+            check(rel <= 1e-4, f"20c {arch_id}/{name}: losses {l_dev} vs "
+                  f"{l_cpu}")
+            check((bits or beyond <= 0.01 * total)
+                  and worst <= 2 * lr_sum + 1e-6,
+                  f"20c {arch_id}/{name}: parameters {row}")
+    out["compression"] = compression_card_vs_cpu(dev)
+    return out
+
+
+def compression_card_vs_cpu(dev):
+    """20c: the EDEN round trip at 1, 2 and 4 bits on the card against
+    the CPU, the same 10^6-element vector and signs: codes EQUAL wherever
+    the normalized value is more than 1e-6 from a midpoint, outputs
+    within 1e-5 of the largest |value| where every code is equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.train import compression as TZ
+
+    g = torch.randn(1_000_003, generator=torch.Generator().manual_seed(23))
+    signs = TZ.rand_signs(23, 2048)
+    out = {}
+    for bits in (1, 2, 4):
+        cfg = TZ.CompressionConfig(bits=bits, enabled=True)
+        codes_c, _, yn = TZ.encode_blocks(g, cfg, signs)
+        codes_d = TZ.encode_blocks(g.to(dev), cfg, signs)[0].cpu()
+        grid = torch.from_numpy(TZ._grid(bits))
+        mids = (grid[1:] + grid[:-1]) / 2
+        near = ((yn[..., None] - mids).abs() <= 1e-6).any(-1)
+        differ = codes_c != codes_d
+        check(not bool((differ & ~near).any()),
+              f"20c compression {bits} bits: codes differ off midpoints")
+        want = TZ.compress_decompress(g, cfg, signs)
+        got = TZ.compress_decompress(g.to(dev), cfg, signs).cpu()
+        err = float((got - want).abs().max())
+        if not bool(differ.any()):
+            check(err <= 1e-5 * float(want.abs().max()),
+                  f"20c compression {bits} bits: outputs {err}")
+        out[f"bits_{bits}"] = dict(codes_differ=int(differ.sum()),
+                                   near_midpoint=int(near.sum()),
+                                   max_abs_err=err,
+                                   codes=int(np.prod(codes_c.shape)))
+    return out
+
+
+def train_restart(dev):
+    """20d: in process, under deterministic algorithms: save at step 3,
+    3 more steps, restore, replay: losses EQUAL as fp32 bits; then the
+    launcher as a child process dies at step 5 (exit 42), and its
+    ``main`` run again in this process resumes from step 4 (returns 0)."""
+    import functools
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import IteratorState, TokenStream
+    from repro_torch.launch import train as TL
+    from repro_torch.models import transformer as TT
+    from repro_torch.train import trainer as TTR
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    out = {}
+    arch = TL.reduced_arch(registry.get("llama3.2-3b"))
+    cfg, tcfg = arch.cfg, arch.train_cfg
+    (ROOT / "build").mkdir(exist_ok=True)
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            params = TT.init_params(torch.Generator(device=dev).manual_seed(
+                22), cfg, device=dev)
+            state = TTR.init_state(22, params, tcfg)
+            step = TTR.make_train_step(functools.partial(TT.loss_fn, cfg=cfg),
+                                       tcfg)
+            stream = TokenStream(IteratorState(seed=22), 8, 256, cfg.vocab)
+            mgr = CheckpointManager(tmp, keep_n=2)
+            for _ in range(3):
+                state, _ = step(state, stream.next())
+            mgr.save(3, state, extra=stream.state.to_dict())
+            cont = []
+            for _ in range(3):
+                state, m = step(state, stream.next())
+                cont.append(float(m["loss"]))
+            mgr.wait()
+            state, extra = mgr.restore(state)
+            stream = TokenStream(IteratorState.from_dict(extra), 8, 256,
+                                 cfg.vocab)
+            replay = []
+            for _ in range(3):
+                state, m = step(state, stream.next())
+                replay.append(float(m["loss"]))
+            out["in_process"] = dict(cont=cont, replay=replay)
+            check(cont == replay, f"20d: replay {replay} != {cont}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        argv = ["--arch", "llama3.2-3b", "--reduced", "--device",
+                TRAIN_LAUNCH_DEVICE, "--steps", "8", "--batch", "4", "--seq",
+                "16", "--ckpt-dir", tmp, "--ckpt-every", "2",
+                "--log-every", "1"]
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "repro_torch.launch.train"]
+                           + argv + ["--die-at-step", "5"], cwd=ROOT,
+                           env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                           capture_output=True, text=True,
+                           timeout=TRAIN_LAUNCH_TIMEOUT)
+        runs = [dict(rc=p.returncode, seconds=time.perf_counter() - t0,
+                     stdout=p.stdout[-2000:], stderr=p.stderr[-2000:])]
+        # the rerun through the same entry point in this process (a second
+        # child would spend ~20 s starting)
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = TL.main(argv)
+        runs.append(dict(rc=rc, seconds=time.perf_counter() - t0,
+                         stdout=buf.getvalue()[-2000:], stderr=""))
+        out["launcher"] = runs
+        died, resumed = runs
+        check(died["rc"] == 42 and "[failure-sim] dying at step 5"
+              in died["stdout"], f"20d: launcher run 1 {died}")
+        check(resumed["rc"] == 0 and "[restore] resumed from step 4"
+              in resumed["stdout"] and "[done]" in resumed["stdout"],
+              f"20d: launcher run 2 {resumed}")
+        step5 = [ln for r in runs for ln in r["stdout"].splitlines()
+                 if ln.startswith("step     5 ")]
+        check(len(step5) == 2 and step5[0].split("(")[0]
+              == step5[1].split("(")[0], f"20d: step 5 lines {step5}")
+    return out
+
+
+def train_phase(results, dev):
+    """Phase 20 (run right after phase 19)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    free, total = torch.cuda.mem_get_info()
+    results["before_train"] = dict(
+        allocated_gb=torch.cuda.memory_allocated() / 1e9,
+        free_gb=free / 1e9, total_gb=total / 1e9)
+    log("before_train", **results["before_train"])
+    for (arch_id, batch, steps), key in zip(TRAIN_RUNS, ("20a", "20b")):
+        row = train_full(arch_id, batch, steps, dev,
+                         det_steps=TRAIN_DET_STEPS if key == "20a" else 0)
+        results[f"train_{key}"] = row
+        log(f"train_{key}", **{k: v for k, v in row.items()
+                               if k not in ("profile", "step_ms")})
+        log(f"train_{key}_profile", **row["profile"])
+    t0 = time.perf_counter()
+    results["train_20c"] = train_card_vs_cpu(dev)
+    results["train_20c"]["seconds"] = time.perf_counter() - t0
+    log("train_20c", **results["train_20c"])
+    t0 = time.perf_counter()
+    results["train_20d"] = train_restart(dev)
+    results["train_20d"]["seconds"] = time.perf_counter() - t0
+    log("train_20d", in_process=results["train_20d"]["in_process"],
+        launcher=[{k: r[k] for k in ("rc", "seconds")}
+                  for r in results["train_20d"]["launcher"]],
+        seconds=results["train_20d"]["seconds"])
+    results["train_seconds"] = time.perf_counter() - t_phase
+    log("train_phase", seconds=results["train_seconds"])
+
+
 def ann_phases(results, dev):
     """Phases 3-8 and 13-18 over phase 3's index; returns the rows of
     kernels 1-6 for the ``kernels`` line (every tensor of these phases
@@ -3599,6 +4070,9 @@ def ann_phases(results, dev):
 
 
 def main() -> int:
+    # phase 20's deterministic steps need cuBLAS's fixed workspaces, set
+    # before the first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -3681,6 +4155,9 @@ def main() -> int:
         free_gb=free / 1e9, total_gb=total / 1e9)
     log("before_granite", **results["before_granite"])
     k7_granite, granite_row = granite_phase(results, dev)
+
+    # -- 20. LM training, right after phase 19 on the freed memory --------
+    train_phase(results, dev)
 
     rows = ann_phases(results, dev)
     rows.append(lm_phases(results, dev))

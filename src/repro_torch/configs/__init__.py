@@ -1,10 +1,11 @@
 """Model configurations of the port (its own copies of ``repro.configs``).
 
-Each LM module holds the serving fields of the reference's ``CFG`` (no
-``Arch``, ``TrainConfig`` or ``OptConfig``) and ``ashkv_config()``, CFG
-in the ``decode_32k_ashkv`` cell of ``repro.configs.base.lm_cells``
-(:data:`DECODE_32K_ASHKV`): decode at a 32k context with the
-ASH-compressed KV cache, b = 4, d_code = d_head.
+Each LM module holds the reference's ``CFG``, its ``train_cfg`` as
+``TRAIN_CFG`` (the port's ``TrainConfig``/``OptConfig``) and
+``ashkv_config()``, CFG in the ``decode_32k_ashkv`` cell of
+``repro.configs.base.lm_cells`` (:data:`DECODE_32K_ASHKV`): decode at a
+32k context with the ASH-compressed KV cache, b = 4, d_code = d_head.
+``registry.get`` finds an LM config by the reference's arch id.
 """
 import dataclasses
 

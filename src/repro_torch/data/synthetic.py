@@ -1,13 +1,22 @@
-"""Synthetic embedding data (counterpart of ``repro.data.synthetic``).
+"""Synthetic data (counterpart of ``repro.data.synthetic``).
 
 ``embedding_dataset`` reproduces the paper's Table-4 non-isotropy:
 anisotropic covariance (power-law spectrum), non-zero mean and cluster
 structure; ``isotropy_diagnostics`` measures it.  Draws come from a
 ``torch.Generator`` seeded with ``seed`` on the target device, so a
 million-row set is made on the card.
+
+``TokenStream`` is the resumable LM batch stream of training: batch t
+is a pure function of (seed, t) with the reference's Markov recurrence
+(:func:`markov_tokens`), its draws from a CPU ``torch.Generator``
+seeded ``fold_seed(seed, t)`` (not jax.random's bits); a checkpointed
+``IteratorState`` cursor restarts it exactly.
 """
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from repro_torch.device import full_fp32, resolve_device
@@ -56,3 +65,72 @@ def isotropy_diagnostics(X: torch.Tensor, sample: int = 2048) -> dict:
         "min_cos_sim": float(cos.min()),
         "mean_inf_norm": float(X.to(torch.float32).mean(0).abs().max()),
     }
+
+
+# ---------------------------------------------------------------------------
+# Resumable host-side iterators (checkpointable cursor)
+# ---------------------------------------------------------------------------
+
+_MASK64 = 0xFFFFFFFFFFFFFFFF
+
+
+def fold_seed(seed: int, data: int) -> int:
+    """A seed derived from ``seed`` and ``data`` (a step, a leaf index):
+    the splitmix64 finalizer of ``seed * 2^32 + data``, cut to 63 bits
+    (``torch.Generator`` takes a non-negative int64)."""
+    z = ((seed << 32) + data) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
+@dataclasses.dataclass
+class IteratorState:
+    seed: int
+    step: int = 0
+
+    def to_dict(self):
+        return {"seed": self.seed, "step": self.step}
+
+    @classmethod
+    def from_dict(cls, d):
+        return cls(seed=int(d["seed"]), step=int(d["step"]))
+
+
+def markov_tokens(start: torch.Tensor, steps: torch.Tensor,
+                  vocab: int) -> torch.Tensor:
+    """The reference's token recurrence: row b starts at ``start[b]``
+    (B,) and token t + 1 = (31 * token t + ``steps[b, t]``) mod vocab,
+    ``steps`` (B, S - 1) in [0, 7).  Returns (B, S) int32 on the CPU
+    (a column loop over numpy int64: no value exceeds 31 * vocab + 6)."""
+    carry = start.cpu().numpy().astype(np.int64)
+    s = steps.cpu().numpy().astype(np.int64)
+    out = np.empty((carry.shape[0], s.shape[1] + 1), np.int64)
+    out[:, 0] = carry
+    for t in range(s.shape[1]):
+        carry = (carry * 31 + s[:, t]) % vocab
+        out[:, t + 1] = carry
+    return torch.from_numpy(out.astype(np.int32))
+
+
+class TokenStream:
+    """Deterministic synthetic LM token stream: batch t is a pure function
+    of (seed, t), so restart from a checkpointed cursor is exact.  Tokens
+    follow :func:`markov_tokens` (something learnable); batches are CPU
+    int32 ``{"tokens", "labels"}`` (the same tensor), as the reference's
+    host-side iterator."""
+
+    def __init__(self, state: IteratorState, batch: int, seq: int,
+                 vocab: int):
+        self.state = state
+        self.batch, self.seq, self.vocab = batch, seq, vocab
+
+    def next(self) -> dict:
+        gen = torch.Generator().manual_seed(
+            fold_seed(self.state.seed, self.state.step))
+        start = torch.randint(0, self.vocab, (self.batch,), generator=gen)
+        steps = torch.randint(0, 7, (self.batch, self.seq - 1),
+                              generator=gen)
+        tokens = markov_tokens(start, steps, self.vocab)
+        self.state.step += 1
+        return {"tokens": tokens, "labels": tokens}

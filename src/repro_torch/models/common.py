@@ -4,8 +4,9 @@ Counterpart of ``repro.models.common``: initializers, RMSNorm, SwiGLU,
 RoPE and grouped-query attention, with the reference's layouts (heads
 in the second-to-last axis, weights applied as ``x @ W``) and its
 rounding points: reductions and softmax in fp32, results cast back to
-the activation dtype where the reference casts.  Losses, ``layer_norm``
-and ``embedding_bag`` come with the training and recsys slices.
+the activation dtype where the reference casts.  The two training
+losses compute in fp32, as the reference's; ``layer_norm`` and
+``embedding_bag`` come with the recsys slice.
 """
 from __future__ import annotations
 
@@ -108,3 +109,31 @@ def gqa_attention(
                 for i in range(0, S, q_chunk)]
         return torch.cat(outs, dim=1).reshape(B, S, H, dh)
     return chunk_attn(qr, qpos).reshape(B, S, H, dh)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token CE. logits (..., V); labels (...,) int; with
+    ``mask`` the masked mean (at least one in the denominator)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+def binary_cross_entropy(logits: torch.Tensor,
+                         labels: torch.Tensor) -> torch.Tensor:
+    """Mean sigmoid CE of logits against {0, 1} labels, in the stable
+    form max(l, 0) - l y + log1p(exp(-|l|))."""
+    logits = logits.to(torch.float32)
+    return (torch.clamp(logits, min=0) - logits * labels
+            + torch.log1p(torch.exp(-logits.abs()))).mean()

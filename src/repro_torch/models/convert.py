@@ -3,9 +3,11 @@
 The reference stacks layer weights along a leading L axis in a nested
 dict of arrays; handed over as numpy (``np.asarray`` of each leaf), they
 become a :class:`~repro_torch.models.transformer.Transformer` with
-per-layer weights.  Cache trees keep their layout; packed uint32 words
-travel as int32 bit patterns, as everywhere in the port, and bf16
+per-layer weights, and ``params_to_numpy`` gives the port's parameters
+back as that stacked tree.  Cache trees keep their layout; packed uint32
+words travel as int32 bit patterns, as everywhere in the port, and bf16
 arrays (numpy's ``bfloat16`` extension dtype) keep their bits.
+Training states convert in ``repro_torch.train.checkpoint``.
 """
 from __future__ import annotations
 
@@ -14,7 +16,9 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.moe import MoEParams
-from repro_torch.models.transformer import Layer, Transformer, TransformerConfig
+from repro_torch.models.transformer import (
+    Layer, Transformer, TransformerConfig, train_leaves,
+)
 
 
 def tensor_from_numpy(a, device=None) -> torch.Tensor:
@@ -60,6 +64,47 @@ def params_from_numpy(tree: dict, cfg: TransformerConfig, *,
         None if kvq is None else t(kvq["Wk"], torch.float32),
         None if kvq is None else t(kvq["Wv"], torch.float32),
     )
+
+
+def _numpy(t: torch.Tensor):
+    """A copy of a tensor's bits as numpy: bf16 as ``ml_dtypes.bfloat16``."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_to_numpy(params: Transformer) -> dict:
+    """The port's parameters as the reference's tree: nested dicts, layer
+    weights stacked along L (a trainable model's own tree; otherwise
+    stacked here), numpy leaves with the tensors' dtypes."""
+    if params.tree is not None:
+        return tree_to_numpy(params.tree)
+    out: dict = {}
+    for path, tensors in train_leaves(params):
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = (_numpy(tensors[0]) if path[0] != "layers"
+                          else np.stack([_numpy(t) for t in tensors]))
+    return out
+
+
+def tree_to_numpy(tree):
+    """A nested dict of tensors as the same dict of numpy copies."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    return _numpy(tree)
+
+
+def tree_from_numpy(tree, device):
+    """A nested dict of numpy arrays as the same dict of tensors on
+    ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_from_numpy(v, device) for k, v in tree.items()}
+    return tensor_from_numpy(tree, device)
 
 
 def cache_from_numpy(tree: dict, *, device="cuda") -> dict:

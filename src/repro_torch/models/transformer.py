@@ -1,7 +1,8 @@
-"""Decoder-only transformer (dense + MoE, GQA, RoPE, SwiGLU) for serving.
+"""Decoder-only transformer (dense + MoE, GQA, RoPE, SwiGLU): serving and
+training.
 
 Counterpart of ``repro.models.transformer``: ``init_params``,
-``forward``/``prefill``, ``init_cache``
+``forward``/``prefill``, ``loss_fn``, ``init_cache``
 and ``decode_step`` with a bf16 KV cache or, with
 ``cfg.kv_quant_bits > 0``, an ASH-compressed one.  Keys and values are
 projected per KV head by a row-orthonormal matrix, quantized to b bits
@@ -17,10 +18,17 @@ The parameters are an ``nn.Module`` with per-layer weights in the
 reference's layout (applied as ``x @ W``); the reference's layer scan is
 a Python loop.  With ``cfg.moe`` each layer's FFN is ``moe.moe_block``
 over the flattened tokens (``forward`` returns the summed router aux
-loss).  Serving only: no remat or sharding constraints, and the cache
-is updated in place (``decode_step`` returns the same dict), since a
-copy of a 31 GB cache per step is not affordable.  Entry points run on ``device="cuda"``
-unless the caller passes ``device="cpu"``.
+loss).  Serving (``forward``, ``prefill``, ``decode_step``) runs under
+``torch.no_grad`` on frozen weights, and the cache is updated in place
+(``decode_step`` returns the same dict), since a copy of a 31 GB cache
+per step is not affordable.  Training (``loss_fn``) runs the same layer
+body with autograd on; with ``cfg.remat`` each layer is recomputed in
+the backward pass (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` with ``nothing_saveable``).  ``make_trainable``
+turns a model's weights into training weights: each layer weight
+becomes a view of one (L, ...) tensor per reference leaf, the tree the
+optimizers and checkpoints work on.  Entry points run on
+``device="cuda"`` unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.core import quantization as Q
@@ -54,6 +63,7 @@ class TransformerConfig:
     moe: Optional[MoEConfig] = None
     dtype: torch.dtype = torch.bfloat16  # activation dtype
     param_dtype: torch.dtype = torch.bfloat16
+    remat: bool = True  # recompute each layer in the backward pass
     q_chunk: int = 2048  # query chunking for long prefill (0 = off)
     # ASH-KV cache compression (0 = off -> bf16 cache)
     kv_quant_bits: int = 0
@@ -120,6 +130,7 @@ class Transformer(nn.Module):
         self.lm_head = _frozen(lm_head)
         self.kv_Wk = None if kv_Wk is None else _frozen(kv_Wk)
         self.kv_Wv = None if kv_Wv is None else _frozen(kv_Wv)
+        self.tree = None  # the stacked training tree (make_trainable)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return forward(self, tokens, self.cfg)[0]
@@ -219,19 +230,115 @@ def _logits(params: Transformer, cfg: TransformerConfig, x: torch.Tensor):
     return (x @ params.lm_head).to(torch.float32)
 
 
+def _forward(params: Transformer, tokens: torch.Tensor,
+             cfg: TransformerConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward body shared by serving and training; with autograd on
+    and ``cfg.remat`` each layer runs under a non-reentrant checkpoint."""
+    S = tokens.shape[1]
+    x = params.embed[tokens.long()].to(cfg.dtype)
+    positions = torch.arange(S, device=x.device)
+    aux = torch.zeros((), device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in params.layers:
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(
+                _layer, cfg, lp, x, positions, use_reentrant=False)
+        else:
+            x, a = _layer(cfg, lp, x, positions)
+        aux = aux + a
+    return _logits(params, cfg, x), aux
+
+
 @torch.no_grad()
 def forward(params: Transformer, tokens: torch.Tensor,
             cfg: TransformerConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V) fp32, the router aux loss summed over
     layers (zero for a dense model))."""
-    S = tokens.shape[1]
-    x = params.embed[tokens.long()].to(cfg.dtype)
-    positions = torch.arange(S, device=x.device)
-    aux = torch.zeros((), device=x.device)
-    for lp in params.layers:
-        x, a = _layer(cfg, lp, x, positions)
-        aux = aux + a
-    return _logits(params, cfg, x), aux
+    return _forward(params, tokens, cfg)
+
+
+def loss_fn(params: Transformer, batch: dict,
+            cfg: TransformerConfig) -> torch.Tensor:
+    """Next-token CE of ``logits[:, :-1]`` against ``labels[:, 1:]`` plus
+    the summed router aux loss, with autograd on (the training loss)."""
+    logits, aux = _forward(params, batch["tokens"], cfg)
+    return cm.softmax_cross_entropy(
+        logits[:, :-1], batch["labels"][:, 1:]) + aux
+
+
+# ---------------------------------------------------------------------------
+# Training weights: the reference's stacked tree over per-layer views
+# ---------------------------------------------------------------------------
+
+
+def leaf_paths(cfg: TransformerConfig) -> list[tuple[str, ...]]:
+    """The reference's parameter leaves in its flatten order (dict keys
+    sorted at every level), e.g. ``("layers", "moe", "router")``."""
+    layers = dict.fromkeys(Layer.NAMES)
+    if cfg.qkv_bias:
+        layers.update(dict.fromkeys(Layer.BIAS_NAMES))
+    if cfg.moe:
+        layers["moe"] = dict.fromkeys(MoEParams.NAMES)
+    else:
+        layers.update(dict.fromkeys(Layer.FFN_NAMES))
+    skeleton = {"embed": None, "final_norm": None, "layers": layers,
+                "lm_head": None}
+
+    def walk(node, prefix):
+        for key in sorted(node):
+            if node[key] is None:
+                yield prefix + (key,)
+            else:
+                yield from walk(node[key], prefix + (key,))
+
+    return list(walk(skeleton, ()))
+
+
+def _owners(params: Transformer, path: tuple[str, ...]) -> list[nn.Module]:
+    """The modules holding leaf ``path``: every layer (or its ``moe``)
+    for a layer leaf, else the model itself."""
+    if path[0] != "layers":
+        return [params]
+    return [lp.moe if len(path) == 3 else lp for lp in params.layers]
+
+
+def train_leaves(params: Transformer) -> list[tuple[tuple[str, ...], list]]:
+    """(path, tensors) per reference leaf, in its flatten order: the L
+    per-layer weights of a layer leaf, the one tensor of the others."""
+    return [(path, [getattr(o, path[-1]) for o in _owners(params, path)])
+            for path in leaf_paths(params.cfg)]
+
+
+def make_trainable(params: Transformer) -> dict:
+    """Make ``params`` trainable and return its training tree.
+
+    The tree is the reference's nested parameter dict: ``embed``,
+    ``final_norm`` and ``lm_head`` are the model's own parameters, and
+    each layer leaf is one (L, ...) tensor of which every layer's
+    parameter is a view, so an in-place update of the tree updates the
+    model.  Every parameter gets ``requires_grad``.  Kept in
+    ``params.tree``; a second call returns it.
+    """
+    if params.tree is not None:
+        return params.tree
+    if params.kv_Wk is not None:
+        raise ValueError("training takes a config without ASH-KV "
+                         "projections (kv_quant_bits = 0)")
+    tree: dict = {}
+    for path, tensors in train_leaves(params):
+        owners = _owners(params, path)
+        if path[0] == "layers":
+            leaf = torch.stack([t.detach() for t in tensors])
+            for l, o in enumerate(owners):
+                setattr(o, path[-1], nn.Parameter(leaf[l]))
+        else:
+            leaf = tensors[0].requires_grad_(True)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    params.tree = tree
+    return tree
 
 
 def prefill(params: Transformer, tokens: torch.Tensor,

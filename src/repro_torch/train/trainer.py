@@ -1,0 +1,143 @@
+"""The train step (counterpart of ``repro.train.trainer``): a
+microbatched (gradient-accumulation) step with mixed precision, optional
+gradient compression, and a ``TrainState`` that checkpoints and
+restores in the reference's layout.
+
+The parameters are a ``models.transformer.Transformer``; ``init_state``
+makes it trainable, and the optimizer works on its stacked tree (the
+reference's leaves), updating it in place.  The step returns a new
+``TrainState`` whose ``params``, ``opt_state`` and ``ef_state`` are the
+same objects, updated.  Each step's work is in three profiler ranges,
+``train.forward_backward``, ``train.compression`` and
+``train.optimizer``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch.data.synthetic import fold_seed
+from repro_torch.device import full_fp32
+from repro_torch.models import transformer as TT
+from repro_torch.train import optim as O
+from repro_torch.train.compression import (
+    CompressionConfig, EFState, compress_tree, ef_init,
+)
+
+
+class TrainState(NamedTuple):
+    params: Any  # a trainable Transformer (its tree is what is saved)
+    opt_state: Any
+    ef_state: Optional[EFState]
+    step: torch.Tensor  # int32 (), on the CPU
+    rng: torch.Tensor  # uint32 (2,), on the CPU: the words of PRNGKey(seed)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    opt: O.OptConfig = O.OptConfig()
+    microbatches: int = 1  # gradient-accumulation chunks per step
+    compression: CompressionConfig = CompressionConfig()
+    grad_accum_dtype: torch.dtype = torch.float32
+
+
+def rng_key(seed: int) -> torch.Tensor:
+    """The reference's ``PRNGKey(seed)`` words, [seed >> 32, seed mod 2^32]."""
+    return torch.tensor([seed >> 32, seed & 0xFFFFFFFF], dtype=torch.uint32)
+
+
+def key_seed(rng: torch.Tensor) -> int:
+    hi, lo = (int(w) for w in rng.to(torch.int64))
+    return (hi << 32) | lo
+
+
+def init_state(seed: int, params: TT.Transformer,
+               tcfg: TrainConfig) -> TrainState:
+    tree = TT.make_trainable(params)
+    opt_init, _ = O.make_optimizer(tcfg.opt)
+    return TrainState(
+        params=params,
+        opt_state=opt_init(tree),
+        ef_state=ef_init(tree) if tcfg.compression.enabled else None,
+        step=torch.zeros((), dtype=torch.int32),
+        rng=rng_key(seed),
+    )
+
+
+def make_train_step(loss_fn: Callable, tcfg: TrainConfig):
+    """Returns train_step(state, batch) -> (state, metrics).
+
+    ``loss_fn(params, batch)`` -> scalar loss.  ``microbatches`` = k > 1
+    splits the batch along axis 0 of every leaf with the microbatches
+    INTERLEAVED (row r of microbatch m is global row r*k + m, as the
+    reference's) and accumulates ``a + g / k`` in ``grad_accum_dtype``
+    (the loss as ``loss + loss_m / k`` in fp32); with k = 1 the
+    gradients stay in the parameter dtype.  Compression (if enabled)
+    runs before the optimizer.  Metrics (device tensors): ``loss``,
+    ``grad_norm`` (after compression, before clipping) and ``step``.
+    """
+    _, opt_update = O.make_optimizer(tcfg.opt)
+    k = tcfg.microbatches
+
+    def grads_of(params, batch):
+        """(loss, per reference leaf the list of its tensors' grads)."""
+        leaves = TT.train_leaves(params)
+        flat = [t for _, ts in leaves for t in ts]
+        with torch.enable_grad():
+            loss = loss_fn(params, batch)
+            gs = iter(torch.autograd.grad(loss, flat, allow_unused=True,
+                                          materialize_grads=True))
+        return loss.detach(), [(path, [next(gs) for _ in ts])
+                               for path, ts in leaves]
+
+    def stacked(grads):
+        return [g[0] if path[0] != "layers" else torch.stack(g)
+                for path, g in grads]
+
+    def train_step(state: TrainState, batch):
+        full_fp32()
+        params = state.params
+        tree = params.tree
+        dev = params.embed.device
+        batch = {n: v.to(dev) for n, v in batch.items()}
+        with torch.profiler.record_function("train.forward_backward"):
+            if k > 1:
+                acc = O.tree_map(lambda p: torch.zeros(
+                    p.shape, dtype=tcfg.grad_accum_dtype, device=p.device),
+                    tree)
+                loss = torch.zeros((), dtype=torch.float32, device=dev)
+                for m in range(k):
+                    mb = {n: v[m::k] for n, v in batch.items()}
+                    loss_m, grads = grads_of(params, mb)
+                    for a, (path, gs) in zip(O.tree_leaves(acc), grads):
+                        parts = [a] if path[0] != "layers" else a
+                        for a_l, g in zip(parts, gs):
+                            a_l.add_(g.to(tcfg.grad_accum_dtype) / k)
+                    del grads
+                    loss = loss + loss_m / k
+                grads = acc
+            else:
+                loss, grads = grads_of(params, batch)
+                it = iter(stacked(grads))
+                grads = O.tree_map(lambda _: next(it), tree)
+
+        ef = state.ef_state
+        if tcfg.compression.enabled:
+            with torch.profiler.record_function("train.compression"):
+                ck = fold_seed(key_seed(state.rng), int(state.step))
+                grads, ef = compress_tree(ck, grads, ef, tcfg.compression)
+
+        with torch.profiler.record_function("train.optimizer"):
+            grad_norm = O.global_norm(grads)
+            updates, opt_state = opt_update(grads, state.opt_state, tree)
+            O.apply_updates(tree, updates)
+        new_state = TrainState(params=params, opt_state=opt_state,
+                               ef_state=ef, step=state.step + 1,
+                               rng=state.rng)
+        metrics = {"loss": loss, "grad_norm": grad_norm,
+                   "step": new_state.step}
+        return new_state, metrics
+
+    return train_step

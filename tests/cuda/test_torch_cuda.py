@@ -18,6 +18,7 @@ accumulation, one epilogue order).
 """
 import copy
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -981,6 +982,97 @@ def test_moe_decode_step_on_card_matches_cpu(cuda):
         torch.testing.assert_close(b.cpu(), a, rtol=1e-3,
                                    atol=1e-3 * a.abs().max().item())
     assert KA.launch_counts["ash_kv_attn"] == 10 * cfg.n_layers
+
+
+# -- LM training on the card -------------------------------------------------
+
+
+def _train(arch, params, steps, seed=21):
+    """``steps`` train steps of ``arch`` on ``params``' device from the
+    launcher's stream; (losses, the final parameter leaves on the CPU)."""
+    import functools
+
+    from repro_torch.launch import train as TL
+    from repro_torch.models import transformer as TT
+    from repro_torch.train import optim as TO
+    from repro_torch.train import trainer as TTR
+
+    state = TTR.init_state(seed, params, arch.train_cfg)
+    step = TTR.make_train_step(functools.partial(TT.loss_fn, cfg=arch.cfg),
+                               arch.train_cfg)
+    stream = TL.make_stream(arch, 4, 64, seed)
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, stream.next())
+        losses.append(float(m["loss"]))
+    return losses, [t.detach().cpu() for t in TO.tree_leaves(params.tree)]
+
+
+@pytest.mark.parametrize("arch_id", ["llama3.2-3b", "granite-moe-3b-a800m"])
+def test_train_steps_on_card_match_cpu(cuda, arch_id):
+    """3 AdamW steps of the reduced arch (fp32) on the card against the
+    same weights and batches on the CPU: losses to rtol 1e-4; parameters
+    to 1e-6 but for at most 1 % of the elements (AdamW's m/sqrt(v) where
+    the clipped |g| is near eps), all within twice the summed learning
+    rates."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import train as TL
+    from repro_torch.models import convert
+    from repro_torch.models import transformer as TT
+    from repro_torch.train import optim as TO
+
+    arch = TL.reduced_arch(registry.get(arch_id))
+    p_cpu = TT.init_params(torch.Generator().manual_seed(0), arch.cfg,
+                           device="cpu")
+    p_gpu = convert.params_from_numpy(convert.params_to_numpy(p_cpu),
+                                      arch.cfg, device=cuda)
+    l_cpu, t_cpu = _train(arch, p_cpu, 3)
+    l_gpu, t_gpu = _train(arch, p_gpu, 3)
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-4)
+    lr_sum = sum(TO.lr_at(arch.train_cfg.opt, s) for s in (1, 2, 3))
+    diff = [(a - b).abs() for a, b in zip(t_gpu, t_cpu)]
+    assert sum(int((d > 1e-6).sum()) for d in diff) <= 0.01 * sum(
+        d.numel() for d in diff)
+    assert max(float(d.max()) for d in diff) <= 2 * lr_sum + 1e-6
+
+
+def test_train_restart_on_card_is_bitwise(cuda, tmp_path):
+    """Under deterministic algorithms: save at step 3, three more steps,
+    restore, replay: the losses EQUAL as fp32 bits."""
+    import functools
+
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import IteratorState, TokenStream
+    from repro_torch.launch import train as TL
+    from repro_torch.models import transformer as TT
+    from repro_torch.train import trainer as TTR
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    arch = TL.reduced_arch(registry.get("llama3.2-3b"))
+    # cuBLAS under deterministic algorithms needs fixed workspaces
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        params = TT.init_params(torch.Generator(device=cuda).manual_seed(1),
+                                arch.cfg, device=cuda)
+        state = TTR.init_state(1, params, arch.train_cfg)
+        step = TTR.make_train_step(
+            functools.partial(TT.loss_fn, cfg=arch.cfg), arch.train_cfg)
+        stream = TokenStream(IteratorState(seed=3), 8, 256, arch.cfg.vocab)
+        mgr = CheckpointManager(str(tmp_path), async_save=False)
+        for _ in range(3):
+            state, _ = step(state, stream.next())
+        mgr.save(3, state, extra=stream.state.to_dict())
+        cont = [float(step(state, stream.next())[1]["loss"])
+                for _ in range(3)]
+        state, extra = mgr.restore(state)
+        stream = TokenStream(IteratorState.from_dict(extra), 8, 256,
+                             arch.cfg.vocab)
+        replay = [float(step(state, stream.next())[1]["loss"])
+                  for _ in range(3)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert cont == replay
 
 
 # -- the serving engine on the card ----------------------------------------

@@ -256,6 +256,10 @@ def test_port_never_imports_jax_or_reference():
     for mod in ("pq", "lopq", "eden", "leanvec", "rabitq"):
         assert REPO / "src" / "repro_torch" / "baselines" / f"{mod}.py" in files
     assert REPO / "src" / "repro_torch" / "models" / "moe.py" in files
+    for mod in ("optim", "compression", "trainer", "checkpoint"):
+        assert REPO / "src" / "repro_torch" / "train" / f"{mod}.py" in files
+    assert REPO / "src" / "repro_torch" / "launch" / "train.py" in files
+    assert REPO / "src" / "repro_torch" / "configs" / "registry.py" in files
     assert REPO / "src" / "repro_torch" / "configs" / "granite_moe_3b.py" \
         in files
     for f in files:

@@ -21,8 +21,10 @@ Inputs come from numpy.
   and the ASH-KV cache (b = 4, d_code = d_head), as
   ``tests/test_torch_models.py`` holds the dense model: fp32 logits to
   1e-5 (exact cache) and 1e-4 (ASH-KV; codes EQUAL).
-* Every ported config's fields, ``param_count`` and
-  ``active_param_count`` EQUAL the reference's.
+* Every ported config's fields (``remat`` included), ``param_count``
+  and ``active_param_count`` EQUAL the reference's, and its
+  ``TRAIN_CFG`` the reference arch's ``train_cfg`` field by field
+  (dtype fields by name).
 """
 import dataclasses
 import importlib
@@ -290,7 +292,7 @@ CONFIGS = ("granite_moe_3b", "deepseek_7b", "kimi_k2_1t", "qwen2_72b",
            "llama32_3b")
 FIELDS = ("name", "n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
           "vocab", "d_head", "qkv_bias", "rope_theta", "norm_eps",
-          "q_chunk", "kv_quant_bits", "kv_quant_dim")
+          "remat", "q_chunk", "kv_quant_bits", "kv_quant_dim")
 
 
 @pytest.mark.parametrize("mod", CONFIGS)
@@ -310,7 +312,24 @@ def test_config_equals_reference(mod):
     assert tc.param_count() == jc.param_count()
     assert tc.active_param_count() == jc.active_param_count()
     assert tc.head_dim == jc.head_dim
+    _same_fields(port.TRAIN_CFG, importlib.import_module(
+        f"repro.configs.{mod}").ARCH.train_cfg)
     cell = port.ashkv_config()
     assert (cell.kv_quant_bits, cell.kv_quant_dim) == (4, 0)
     assert port.DECODE_32K_ASHKV == {"seq_len": 32768, "global_batch": 128,
                                      "kv_quant_bits": 4, "kv_quant_dim": 0}
+
+
+def _same_fields(got, want):
+    """Dataclass ``got`` equals ``want`` field by field, nested
+    dataclasses recursively and dtype fields by name."""
+    assert [f.name for f in dataclasses.fields(got)] == \
+        [f.name for f in dataclasses.fields(want)]
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if dataclasses.is_dataclass(b):
+            _same_fields(a, b)
+        elif isinstance(a, torch.dtype):
+            assert str(a).split(".")[-1] == jnp.dtype(b).name, f.name
+        else:
+            assert a == b, f.name
