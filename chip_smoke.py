@@ -247,12 +247,45 @@ for exact rerank.  Phases, one line each:
      child process: ``--die-at-step 5`` exits 42; the rerun, through the
      same ``main`` in this process, resumes from step 4 (``[restore]
      resumed from step 4``, step 5's line equal to the first run's) and
-     returns 0.
+     returns 0;
+  21. the recommender and interatomic families (run right after phase
+     20, on the memory it frees; the reference's cells, hardcoded):
+     21a SASRec at full width (1,048,576 items, e = 50, 2 blocks, seq
+     50, 128 negatives), 4 AdamW steps at 65,536 sequences of the
+     ``SequenceStream`` (step p50/p99 by CUDA events, sequences/s, peak
+     memory), the ``retrieval_cand_ash`` index over the trained item
+     table (b = 4, d = 25, so d_pad = 32; 16 learned landmarks, dot;
+     build seconds), kernels 1 and 2 at that shape against their plain
+     versions under phase 4's rule (and their pad lanes 0), kernel 2's
+     time, bound and yardstick there, then 30 requests of 512 user
+     sequences each at k = 10 and k = 100 through ``sasrec_retrieve``
+     (launch counts zeroed just before and read just after: one merge
+     per kernel-2 scan), p50/p99, tickets EQUAL to a direct
+     ``AshIndex.search`` of the same user states, and 10-recall@10
+     against the exact top-10 over every item, kernel route within
+     0.005 of the plain route; 21b DCN-v2, FM and AutoInt at full width
+     (26 or 39 fields of 1,048,576 rows), 4 AdamW steps each at 65,536
+     rows of the ``ClickStream`` (dense grads of the whole table; step
+     p50, examples/s, peak memory), 50 forwards at 512 rows (p50/p99)
+     and one user against 10^6 candidates (in chunks of 2^18), every
+     logit finite; 21c NequIP (5 layers, 32 channels, l_max 2) on 128
+     molecules of 30 atoms and 64 edges: ``energy_and_forces`` p50, the
+     second-order train step's p50 over 4 steps, energies invariant
+     (1e-5) and forces equivariant (1e-4, relative to the largest
+     value) under a rotation and a translation; 21d the five ids at
+     ``reduced_arch`` on the card against the CPU, 3 steps from the same
+     parameters and batches (losses to 1e-4 relative), and the train
+     launcher's ``main`` for nequip on the card, in process: ``--die-at-
+     step 3`` exits 42, the rerun resumes from step 2 with step 3's
+     line EQUAL. 21a-c profile one more train step of each model
+     (device time by group, the optimizer's range, the idle share).
 
 The kernels line's launches add those of phases 14-15's own searches,
 phase 16's engine traffic and recovered-index searches, the launches
-phase 17's launcher processes print, phase 18's RaBitQ searches and
-phase 19's decode steps (kernel 7's row also gives its granite shape).
+phase 17's launcher processes print, phase 18's RaBitQ searches,
+phase 19's decode steps (kernel 7's row also gives its granite shape)
+and phase 21a's requests (kernel 2's row also gives its time at the
+SASRec catalog's shape, ``sasrec``).
 Any failed check raises; the script exits 0 only when every phase
 passed.  The last line is ``{"ok": true, "device": {...}}``.  Detailed
 results go to ``chiprun_out/chip_smoke.json``.
@@ -261,6 +294,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import pathlib
 import shutil
@@ -327,6 +361,41 @@ def bound(ops_ms, bytes_):
 def pct(v, p):
     v = sorted(v)
     return v[min(len(v) - 1, int(round(p / 100 * (len(v) - 1))))]
+
+
+def device_times(prof, ranges=()):
+    """One pass over a torch.profiler trace's raw events: (device us by
+    kernel name, kernels run, device ms of each CPU range named in
+    ``ranges``: the kernels whose launch, a CUDA runtime or driver call
+    of the same correlation id, falls inside the range's time window).
+    Launches are matched by time window on any thread, so a kernel that
+    another thread launches inside the window counts for the range too.
+    Kernels, copies and memsets count; annotations do not.
+    ``key_averages()`` gives the same kernel sums but first builds a
+    Python event tree (about 50 s for one granite-moe-3b training
+    step's events on an H100 host), and its range sums leave out what
+    the autograd thread launches."""
+    import torch
+
+    cuda_t = torch.autograd.DeviceType.CUDA
+    dev_us, kernels, launch, spans = {}, [], {}, {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == cuda_t:
+            if not e.is_user_annotation() and e.duration_ns() > 0:
+                us = e.duration_ns() / 1e3
+                dev_us[name] = dev_us.get(name, 0.0) + us
+                kernels.append((e.correlation_id(), us))
+        elif name in ranges:
+            spans.setdefault(name, []).append((e.start_ns(), e.end_ns()))
+        elif name.startswith("cu"):  # cudaLaunchKernel, cuLaunchKernel...
+            launch[e.correlation_id()] = e.start_ns()
+    range_ms = {}
+    for name, windows in spans.items():
+        range_ms[name] = sum(
+            us for c, us in kernels if c in launch
+            and any(a <= launch[c] <= b for a, b in windows)) / 1e3
+    return dev_us, len(kernels), range_ms
 
 
 def ascending_operands(args, qterm, rowterm, rows, q_ops, order):
@@ -483,11 +552,7 @@ def profile_requests(search, queries, n_prof=20):
             search(queries[r * REQ_M:(r + 1) * REQ_M])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only: a CPU op's self device time repeats the
-    # time of the kernels it launched
-    dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0}
+    dev_us = device_times(prof)[0]
     busy_ms = sum(dev_us.values()) / 1e3
     by_name = {}  # template names are long: group by their first 80 chars
     for name, us in dev_us.items():
@@ -583,9 +648,7 @@ def profile_step(step, n_prof=2):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0}
+    dev_us = device_times(prof)[0]
     busy_ms = sum(dev_us.values()) / 1e3
     groups = {"ash_kv_attn": 0.0, "matmul": 0.0, "other": 0.0}
     for name, us in dev_us.items():
@@ -1136,15 +1199,160 @@ def _profile(run, n_queries):
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    dev_us, n_ops, _ = device_times(prof)
+    busy_ms = sum(dev_us.values()) / 1e3
     return dict(queries=n_queries, wall_ms_per_query=wall_ms / n_queries,
                 device_busy_ms_per_query=busy_ms / n_queries,
-                device_ops_per_query=sum(e.count for e in dev) / n_queries,
+                device_ops_per_query=n_ops / n_queries,
                 device_idle_share=(1 - busy_ms / wall_ms) if busy_ms
                 else None)
+
+
+def scan_operands(model, idx, pl, stats, queries, metric):
+    """The kernels' operands on ``idx.prepare(queries)`` over payload
+    ``pl`` (the queries' pad lanes checked to be zeros), the plain dense
+    scores and their elementwise bound ``ref.score_tolerance``: (prep,
+    args, qterm, rowterm, want, tol)."""
+    from repro_torch.core import quantization as Q
+    from repro_torch.kernels import ops, ref
+
+    prep = idx.prepare(queries)
+    args = ops._score_args(prep, pl)
+    codes, qp, scale, offset, cluster, ipq = args
+    check(not bool(qp[:, prep.q_proj.shape[-1]:].any()),
+          "a query's pad lanes are not 0")
+    qterm, rowterm = ops._metric_operands(model, prep, pl, stats, metric)
+    want = ref.ash_score_metric_ref(*args, qterm, rowterm, b=pl.b,
+                                    metric=metric)
+    d_pad = pl.codes.shape[1] * Q.codes_per_word(pl.b)
+    V_abs = Q.unpack_codes(pl.codes, d_pad, pl.b).float().abs()
+    Amat = (qp.abs() @ V_abs.T) * scale.abs()[None, :]
+    del V_abs
+    tol = ref.score_tolerance(Amat, ipq[:, cluster.long()], offset, qterm,
+                              rowterm, want, metric, d_pad)
+    return prep, args, qterm, rowterm, want, tol
+
+
+def within_bound(what, got, want, tol):
+    """The largest |got - want| over its bound, checked to be <= 1."""
+    r = float(((got - want).abs() / tol).max())
+    check(r <= 1.0, f"{what}: |kernel - plain| above bound (max ratio {r})")
+    return r
+
+
+def selection_within(what, ts, tr, ps, pr, want, row_tol):
+    """A kernel's top-k against its plain selection: scores within the
+    row's bound, ids equal wherever the dense plain scores of the two ids
+    differ by more than twice it.  Returns the largest error over
+    bound."""
+    import torch
+
+    differ = tr != pr
+    gap = (want.gather(1, tr.clamp(min=0).long())
+           - want.gather(1, pr.clamp(min=0).long())).abs()
+    fin = torch.isfinite(ps)
+    err = torch.where(fin, (ts - ps).abs(), 0.0)
+    r = float((err / row_tol).max())
+    check(bool((gap[differ] <= 2 * row_tol.expand_as(gap)[differ]).all())
+          and r <= 1.0 and torch.equal(fin, torch.isfinite(ts)),
+          f"{what} != its plain selection beyond the bound")
+    return r
+
+
+def flat_scan_check(index, queries, ks, what, metric="dot"):
+    """Phase 4's rule for kernels 1 and 2 on the flat scan of ``index``
+    for ``queries``, launched at their row count: kernel 1 within
+    ``ref.score_tolerance`` of its plain version; at each k of ``ks`` the
+    fused top-k EXACTLY the stable top-k of kernel 1's scores, and
+    against the plain fused route (:func:`selection_within`).  Returns
+    (the operands, plain scores, bound and kernel 1's scores, for the
+    caller's further checks; the errors)."""
+    import torch
+
+    from repro_torch.kernels import ash_score as TK
+    from repro_torch.kernels import ref
+
+    pl = index.payload
+    prep, args, qterm, rowterm, want, tol = scan_operands(
+        index.model, index, pl, index.stats, queries, metric)
+    got = TK.ash_score_cuda(*args, qterm, rowterm, b=pl.b, metric=metric)
+    out = dict(m=int(queries.shape[0]), d=int(prep.q_proj.shape[-1]),
+               d_pad=int(args[1].shape[1]),
+               max_abs_err=float((got - want).abs().max()),
+               max_err_over_bound=within_bound(f"{what}: kernel 1", got,
+                                               want, tol),
+               max_bound=float(tol.max()), topk={})
+    row_tol = tol.max(dim=1, keepdim=True).values
+    vs, vi = ref.stable_top_k(got, max(ks))  # its prefixes: each k
+    for k in ks:
+        ts, ti = TK.ash_score_topk_cuda(*args, qterm, rowterm, b=pl.b, k=k,
+                                        metric=metric)
+        exact = bool(torch.equal(ts, vs[:, :k])
+                     and torch.equal(ti, vi[:, :k].to(torch.int32)))
+        check(exact, f"{what}: fused k = {k} != stable top-k of kernel 1")
+        ps, pi = ref.ash_score_topk_ref(*args, qterm, rowterm, None, b=pl.b,
+                                        k=k, metric=metric)
+        out["topk"][k] = dict(
+            max_abs_err=float((ts - ps).abs().max()),
+            max_err_over_bound=selection_within(
+                f"{what}: kernel 2 at k = {k}", ts, ti, ps, pi, want,
+                row_tol),
+            id_mismatch=int((ti != pi).sum()), fused_equals_sorted=exact)
+    del vs, vi
+    return dict(prep=prep, args=args, qterm=qterm, rowterm=rowterm,
+                want=want, tol=tol, got=got), out
+
+
+def flat_scan_rows(index, queries):
+    """Kernels 1 and 2 (k = K) timed on the flat scan of ``index`` for
+    ``queries`` (dot): CUDA-graph ms, the plain version's ms, the bound
+    (each input read once, each output written once; fp32 operations)
+    and the library yardstick on pre-dequantized fp32 codes.  Returns
+    their two rows of the ``kernels`` line, less launches and errors."""
+    import torch
+
+    from repro_torch.core import quantization as Q
+    from repro_torch.kernels import ash_score as TK
+    from repro_torch.kernels import ops, probe, ref
+
+    payload = index.payload
+    args = ops._score_args(index.prepare(queries), payload)
+    m = int(queries.shape[0])
+    n, wd = payload.codes.shape
+    d_pad = wd * Q.codes_per_word(payload.b)
+    C = args[5].shape[1]
+    V32 = Q.unpack_codes(payload.codes, d_pad, payload.b).float()
+    qp = args[1]
+    flops = 2 * m * n * d_pad + 3 * m * n
+    in_bytes = n * wd * 4 + m * d_pad * 4 + 3 * n * 4 + m * C * 4
+    rows = []
+    for name, fn, plain_fn, lib_fn, lib_call, out_bytes, line in (
+        ("ash_score",
+         lambda: TK.ash_score_cuda(*args, b=payload.b),
+         lambda: ref.ash_score_metric_ref(*args, None, None, b=payload.b),
+         lambda: torch.matmul(qp, V32.T),
+         "torch.matmul on pre-dequantized fp32 codes",
+         m * n * 4, 368),
+        ("ash_score_topk",
+         lambda: TK.ash_score_topk_cuda(*args, b=payload.b, k=K),
+         lambda: ref.ash_score_topk_ref(*args, None, None, None,
+                                        b=payload.b, k=K),
+         lambda: torch.topk(torch.matmul(qp, V32.T), K, dim=1),
+         "torch.topk(torch.matmul) on pre-dequantized fp32 codes",
+         m * K * 8, 428),
+    ):
+        bound_ms, bound_by = bound(flops / PEAK_FP32_FLOPS * 1e3,
+                                   in_bytes + out_bytes)
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/ash_score.cu",
+            replaces=f"src/repro/kernels/ash_score.py:{line}",
+            ms=probe.graph_ms(fn), plain_ms=event_ms(plain_fn, iters=10),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=event_ms(lib_fn), library_call=lib_call,
+        ))
+    del V32
+    return rows
 
 
 def kernels_at_rows(index, ivf, queries, m):
@@ -1162,7 +1370,6 @@ def kernels_at_rows(index, ivf, queries, m):
     bound of kernels 1-4 and the equalities, by kernel name."""
     import torch
 
-    from repro_torch.core import quantization as Q
     from repro_torch.index import ivf as IV
     from repro_torch.kernels import ash_score as TK
     from repro_torch.kernels import ops, ref
@@ -1173,43 +1380,13 @@ def kernels_at_rows(index, ivf, queries, m):
            "ash_score_gather": 0.0, "ash_score_gather_topk": 0.0}
     exact = {}
 
-    def dense(idx, pl, stats):
-        """Operands, plain dense scores and their elementwise bound."""
-        prep = idx.prepare(queries[:m])
-        args = ops._score_args(prep, pl)
-        codes, qp, scale, offset, cluster, ipq = args
-        qterm, rowterm = ops._metric_operands(model, prep, pl, stats,
-                                              metric)
-        want = ref.ash_score_metric_ref(*args, qterm, rowterm, b=pl.b,
-                                        metric=metric)
-        d_pad = pl.codes.shape[1] * Q.codes_per_word(pl.b)
-        V_abs = Q.unpack_codes(pl.codes, d_pad, pl.b).float().abs()
-        Amat = (qp.abs() @ V_abs.T) * scale.abs()[None, :]
-        del V_abs
-        tol = ref.score_tolerance(Amat, ipq[:, cluster.long()], offset,
-                                  qterm, rowterm, want, metric, d_pad)
-        return prep, args, qterm, rowterm, want, tol
-
     def ratio(name, got, want, tol):
-        r = float(((got - want).abs() / tol).max())
-        out[name] = max(out[name], r)
-        check(r <= 1.0, f"m = {m}: |{name} - plain| above bound "
-                        f"(max ratio {r})")
+        out[name] = max(out[name],
+                        within_bound(f"m = {m}: {name}", got, want, tol))
 
     def selection(name, ts, tr, ps, pr, want, row_tol):
-        """scores within the row's bound; ids equal wherever the dense
-        plain scores of the two ids differ by more than twice it"""
-        differ = tr != pr
-        gap = (want.gather(1, tr.clamp(min=0).long())
-               - want.gather(1, pr.clamp(min=0).long())).abs()
-        fin = torch.isfinite(ps)
-        err = torch.where(fin, (ts - ps).abs(), 0.0)
-        r = float((err / row_tol).max())
-        out[name] = max(out[name], r)
-        check(bool((gap[differ] <= 2 * row_tol.expand_as(gap)[differ])
-                   .all()) and r <= 1.0 and torch.equal(fin,
-                                                        torch.isfinite(ts)),
-              f"m = {m}: {name} != its plain selection beyond the bound")
+        out[name] = max(out[name], selection_within(
+            f"m = {m}: {name}", ts, tr, ps, pr, want, row_tol))
 
     def gathered(cand, args, qterm, rowterm, want, tol, ks):
         """kernels 3 and 4 over one candidate table"""
@@ -1240,20 +1417,15 @@ def kernels_at_rows(index, ivf, queries, m):
 
     # the flat scan: kernels 1 and 2
     pl = index.payload
-    prep, args, qterm, rowterm, want, tol = dense(index, pl, index.stats)
-    got = TK.ash_score_cuda(*args, qterm, rowterm, b=pl.b, metric=metric)
-    ratio("ash_score", got, want, tol)
-    row_tol = tol.max(dim=1, keepdim=True).values
-    for k in (10, K):
-        ts, ti = TK.ash_score_topk_cuda(*args, qterm, rowterm, b=pl.b,
-                                        k=k, metric=metric)
-        vs, vi = ref.stable_top_k(got, k)
-        exact[f"ash_score_topk/k{k}"] = bool(
-            torch.equal(ts, vs) and torch.equal(ti, vi.to(torch.int32)))
-        ps, pi = ref.ash_score_topk_ref(*args, qterm, rowterm, None,
-                                        b=pl.b, k=k, metric=metric)
-        selection("ash_score_topk", ts, ti, ps, pi, want, row_tol)
-    del got
+    flat, errs = flat_scan_check(index, queries[:m], (10, K), f"m = {m}")
+    prep, args, qterm, rowterm, want, tol = (
+        flat[k] for k in ("prep", "args", "qterm", "rowterm", "want", "tol"))
+    out["ash_score"] = errs["max_err_over_bound"]
+    out["ash_score_topk"] = max(t["max_err_over_bound"]
+                                for t in errs["topk"].values())
+    exact.update({f"ash_score_topk/k{k}": t["fused_equals_sorted"]
+                  for k, t in errs["topk"].items()})
+    del flat
     # the flat coarse scan: kernels 5 and 6, then its two shortlists
     cprep = ops._coarse_prep(prep, pl, index._state.coarse, None)
     cargs = ops._coarse_score_args(prep, cprep, pl)
@@ -1276,8 +1448,8 @@ def kernels_at_rows(index, ivf, queries, m):
     del want, tol
     # the IVF candidate table: kernels 3 and 4
     st = ivf._state
-    prep, args, qterm, rowterm, want, tol = dense(ivf, st.payload,
-                                                  st.stats)
+    prep, args, qterm, rowterm, want, tol = scan_operands(
+        model, ivf, st.payload, st.stats, queries[:m], metric)
     cand = IV.candidate_rows(st, IV._probe_lists(st, prep, NPROBE))
     gathered(cand, args, qterm, rowterm, want, tol, (10, K))
     del want, tol
@@ -2890,6 +3062,8 @@ TRAIN_SEQ = 4096  # the train_4k cell
 # sequence a microbatch (the state of 3.6 B parameters takes 57.7 GB)
 TRAIN_RUNS = (("llama3.2-3b", 2, 8), ("granite-moe-3b-a800m", 4, 4))
 TRAIN_DET_STEPS = 3  # 20a: steps again under deterministic algorithms
+TRAIN_RANGES = ("train.forward_backward", "train.compression",
+                "train.optimizer")  # the trainer's profiler ranges
 TRAIN_SAMPLE = 1 << 20  # elements of each leaf kept to see it change
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 # 20c: the reduced archs, card against CPU, 3 steps a variant
@@ -2920,13 +3094,7 @@ def train_profile(step, labels):
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    ka = prof.key_averages()
-    cuda_t = torch.autograd.DeviceType.CUDA
-    dev_us = {e.key: e.self_device_time_total for e in ka
-              if e.device_type == cuda_t and e.self_device_time_total > 0
-              and e.key not in labels}
-    ranges = {e.key: e.device_time_total / 1e3 for e in ka
-              if e.key in labels and e.device_type != cuda_t}
+    dev_us, _, ranges = device_times(prof, labels)
     groups = {"cublas_bf16": 0.0, "cublas_fp32_attention": 0.0,
               "optimizer": ranges.get("train.optimizer", 0.0), "other": 0.0}
     for name, us in dev_us.items():
@@ -3068,9 +3236,7 @@ def train_full(arch_id, batch, steps, dev, det_steps=0):
                    deterministic_cost=pct(det, 50) / p50 - 1)
     b = stream.next()
     t_prof = time.perf_counter()
-    row["profile"] = train_profile(
-        lambda: step_fn(state, b),
-        ("train.forward_backward", "train.compression", "train.optimizer"))
+    row["profile"] = train_profile(lambda: step_fn(state, b), TRAIN_RANGES)
     row.update(steps_seconds=t_steps,
                profile_seconds=time.perf_counter() - t_prof)
     if cfg.moe:
@@ -3311,6 +3477,446 @@ def train_phase(results, dev):
     log("train_phase", seconds=results["train_seconds"])
 
 
+# -- the recommender and interatomic families (phase 21) -------------------
+# The cells' numbers are the reference's, hardcoded here (the port has no
+# configs/base.py until ROADMAP item 15): recsys_cells and gnn_cells'
+# molecule cell (repro/configs/base.py:531-565) and sasrec's extra
+# retrieval_cand_ash cell (repro/configs/sasrec_cfg.py:8-24: b = 4,
+# d = e / 2).  Their products are cuBLAS and autograd, as the
+# reference's jnp; SASRec's catalog search runs kernel 2.
+FAM_TRAIN_BATCH = 65_536  # train_batch
+FAM_SERVE_BATCH = 512  # serve_p99: a request's rows
+FAM_N_CAND = 1_000_000  # retrieval_cand: one user against 10^6 items
+FAM_CAND_CHUNK = 1 << 18  # candidates a forward (AutoInt's temporaries)
+FAM_STEPS = 4  # train steps a model; the first is warm-up
+FAM_SERVE_TIMED = 50  # serve_p99 forwards a recsys model
+SAS_KS = (10, 100)  # retrieval_cand_ash requests at k = 10 and k = 100
+SAS_REQUESTS = 30  # timed requests a k
+SAS_LANDMARKS = 16
+MOL_GRAPHS, MOL_NODES, MOL_EDGES = 128, 30, 64  # the molecule cell
+FAM_SMALL_STEPS = 3  # 21d: reduced archs, card against CPU
+FAM_SMALL_BATCH = 64
+FAM_IDS = ("sasrec", "dcn-v2", "fm", "autoint", "nequip")
+
+
+def _n_params(tree):
+    from repro_torch.train import optim as TO
+
+    return sum(t.numel() for t in TO.tree_leaves(tree))
+
+
+def _timed_steps(step_fn, state, batches):
+    """Run the train steps over ``batches``: (state, CUDA-event ms a
+    step, losses); every loss must be finite."""
+    import torch
+
+    ms, losses = [], []
+    for b in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step_fn(state, b)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+    check(all(map(math.isfinite, losses)), f"losses {losses}")
+    return state, ms, losses
+
+
+def _profiled_step(step_fn, state, batch):
+    """One more train step under the profiler (:func:`train_profile`):
+    device time by group, the optimizer's range, the idle share."""
+    return train_profile(lambda: step_fn(state, batch), TRAIN_RANGES)
+
+
+def _train_row(name, params, ms, losses, rows_a_step):
+    """Step p50/p99 over the steps after the first, rows a second at the
+    p50, the peak memory since the last reset."""
+    import torch
+
+    timed = sorted(ms[1:])
+    p50 = pct(timed, 50)
+    return dict(model=name, params=_n_params(params), batch=rows_a_step,
+                steps=len(ms), step_ms=ms, losses=losses,
+                step_p50_ms=p50, step_p99_ms=pct(timed, 99),
+                rows_per_s=rows_a_step / (p50 / 1e3),
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def sasrec_phase(dev):
+    """21a: SASRec at full width: 4 train steps at the train_batch cell's
+    65,536 sequences, the retrieval_cand_ash index over the trained item
+    table, kernel 2 at its shape against its plain version, timed
+    requests of 512 user sequences through ``sasrec_retrieve`` (launch
+    counts zeroed just before, read just after), engine == direct search,
+    10-recall@10 against exact scores over every item.  Returns (kernel
+    2's scans and merges in the requests, the phase's row)."""
+    import torch
+
+    from repro_torch.configs import registry, sasrec_cfg
+    from repro_torch.data.synthetic import IteratorState, SequenceStream
+    from repro_torch.index import exact_topk, recall_at
+    from repro_torch.kernels import ash_score as TK
+    from repro_torch.models import sasrec as SR
+    from repro_torch.serving import retrieval as RET
+    from repro_torch.train import trainer as TTR
+
+    arch = registry.get("sasrec")
+    cfg = arch.cfg
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, t_init = sync_time(SR.init_params, torch.Generator(
+        device=dev).manual_seed(21), cfg, device=dev)
+    state = TTR.init_state(21, params, arch.train_cfg)
+    step = TTR.make_train_step(arch.loss_fn(), arch.train_cfg)
+    stream = SequenceStream(IteratorState(seed=21), FAM_TRAIN_BATCH,
+                            cfg.seq_len, cfg.n_items, cfg.n_neg)
+    state, ms, losses = _timed_steps(
+        step, state, [stream.next() for _ in range(FAM_STEPS)])
+    # a sampled softmax over 1 + 128 items of near-zero logits: ln 129
+    check(abs(losses[0] - math.log(1 + cfg.n_neg)) < 0.5,
+          f"21a: step 1 loss {losses[0]} vs ln 129")
+    train = _train_row("sasrec", params, ms, losses, FAM_TRAIN_BATCH)
+    train["sequences_per_s"] = train.pop("rows_per_s")
+    train["init_s"] = t_init
+    train["profile"] = _profiled_step(step, state, stream.next())
+    del state, step
+
+    items = params["item_emb"].detach()
+    index, t_build = sync_time(
+        RET.build_index, torch.Generator().manual_seed(21), items,
+        bits=sasrec_cfg.ASH_BITS, reduce=sasrec_cfg.ASH_REDUCE,
+        n_landmarks=SAS_LANDMARKS, learned=True, metric="dot", device=dev)
+    users = SequenceStream(IteratorState(seed=2101), FAM_SERVE_BATCH,
+                           cfg.seq_len, cfg.n_items, cfg.n_neg)
+    seqs = [users.next()["seq"] for _ in range(SAS_REQUESTS)]
+    with torch.no_grad():
+        u0 = SR.user_state(params, seqs[0].to(dev), cfg)
+    # kernels 1 and 2 held to their plain versions on a request's 512
+    # user states, at its k; kernel 2 timed at phase 7's request shape
+    flat, compare = flat_scan_check(index, u0, SAS_KS, "21a")
+    del flat
+    times = flat_scan_rows(index, u0[:REQ_M])[1]
+    times.update(b=index.payload.b, d_pad=compare["d_pad"],
+                 n=index.n, m=REQ_M, k=K)
+    engine = RET.engine_for(index)
+    for k in SAS_KS:  # the engine's buckets, warmed untimed
+        RET.sasrec_retrieve(params, seqs[0], index, cfg, k=k)
+
+    # the main path: requests of 512 user sequences through the engine
+    TK.reset_launch_counts()
+    lat, out = {}, {}
+    for k in SAS_KS:
+        lat[k] = []
+        for r, seq in enumerate(seqs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = RET.sasrec_retrieve(params, seq, index, cfg, k=k)
+            torch.cuda.synchronize()
+            lat[k].append((time.perf_counter() - t0) * 1e3)
+            if r < 2:
+                out[k, r] = got
+    torch.cuda.synchronize()
+    scans = TK.launch_counts["ash_score_topk"]
+    merges = TK.merge_launches["ash_score_topk"]
+    check(scans > 0 and merges == scans,
+          f"21a: kernel 2 scans {scans}, merges {merges}")
+
+    same, recall = [], {}
+    with torch.no_grad():
+        for (k, r), got in out.items():
+            u = SR.user_state(params, seqs[r].to(dev), cfg)
+            want = index.search(u, k=k)
+            same.append(_eq(got, (want[0].cpu(), want[1].cpu())))
+        check(all(same), f"21a: engine != direct search {same}")
+        _, gt = exact_topk(u0, items, k=10)
+        for k in SAS_KS:
+            ids_k = RET.serve_topk(index, u0, k=k)[1]
+            ids_p = RET.serve_topk(index, u0, k=k, use_kernel=False)[1]
+            recall[k] = dict(kernel=recall_at(ids_k, gt.cpu()),
+                             plain=recall_at(ids_p, gt.cpu()))
+            check(abs(recall[k]["kernel"] - recall[k]["plain"]) <= 0.005,
+                  f"21a: recall at k = {k}: {recall[k]}")
+    row = dict(
+        train=train, index_build_s=t_build, index_rows=index.n,
+        index_config=dict(b=index.config.b, d=index.config.d,
+                          n_landmarks=index.config.n_landmarks),
+        requests=len(seqs), rows_a_request=FAM_SERVE_BATCH,
+        request_ms={k: dict(p50=pct(v, 50), p99=pct(v, 99), all=v)
+                    for k, v in lat.items()},
+        kernel2_scans=scans, kernel2_merges=merges,
+        engine_buckets=list(engine.config.batch_buckets),
+        engine_equal_direct=same, recall_10_at_k=recall,
+        kernel2_vs_plain=compare, kernel2_times=times)
+    del params, index, engine, items
+    torch.cuda.empty_cache()
+    return scans, merges, row
+
+
+def recsys_phase(dev):
+    """21b: DCN-v2, FM and AutoInt at full width: 4 train steps each at
+    the train_batch cell's 65,536 rows (AdamW over the whole folded
+    table, dense grads), serve_p99 forwards at 512 rows, and one user
+    against 10^6 candidates (retrieval_cand, in chunks of 2^18); every
+    logit finite."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import ClickStream, IteratorState
+    from repro_torch.models import recsys as RS
+    from repro_torch.train import trainer as TTR
+
+    out = {}
+    for arch_id in ("dcn-v2", "fm", "autoint"):
+        arch = registry.get(arch_id)
+        cfg = arch.cfg
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params, t_init = sync_time(RS.init_params, torch.Generator(
+            device=dev).manual_seed(22), cfg, device=dev)
+        state = TTR.init_state(22, params, arch.train_cfg)
+        step = TTR.make_train_step(arch.loss_fn(), arch.train_cfg)
+        stream = ClickStream(IteratorState(seed=22), FAM_TRAIN_BATCH,
+                             cfg.n_dense, cfg.n_sparse, cfg.vocab_per_field)
+        state, ms, losses = _timed_steps(
+            step, state, [stream.next() for _ in range(FAM_STEPS)])
+        row = _train_row(arch_id, params, ms, losses, FAM_TRAIN_BATCH)
+        row["examples_per_s"] = row.pop("rows_per_s")
+        row["table_gb"] = params["tables"].numel() * 4 / 1e9
+        row["init_s"] = t_init
+        row["profile"] = _profiled_step(step, state, stream.next())
+        del state, step
+        with torch.no_grad():
+            req = {k: v.to(dev) for k, v in ClickStream(
+                IteratorState(seed=23), FAM_SERVE_BATCH, cfg.n_dense,
+                cfg.n_sparse, cfg.vocab_per_field).next().items()}
+            logits = RS.forward(params, req, cfg)
+            check(logits.shape == (FAM_SERVE_BATCH,)
+                  and bool(torch.isfinite(logits).all()),
+                  f"21b {arch_id}: serve logits")
+            lat = []
+            for _ in range(FAM_SERVE_TIMED):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                RS.forward(params, req, cfg)
+                end.record()
+                end.synchronize()
+                lat.append(start.elapsed_time(end))
+            user = {k: v[:1] for k, v in req.items()}
+            cand = torch.randperm(cfg.vocab_per_field, device=dev,
+                                  generator=torch.Generator(
+                                      device=dev).manual_seed(24))
+            cand = cand[:FAM_N_CAND]
+
+            def score_all():
+                return torch.cat([
+                    RS.retrieval_score(params, user,
+                                       cand[i:i + FAM_CAND_CHUNK], cfg)
+                    for i in range(0, FAM_N_CAND, FAM_CAND_CHUNK)])
+
+            scores = score_all()
+            check(scores.shape == (FAM_N_CAND,)
+                  and bool(torch.isfinite(scores).all()),
+                  f"21b {arch_id}: retrieval scores")
+            ret = [sync_time(score_all)[1] * 1e3 for _ in range(3)]
+        row.update(serve_ms=dict(p50=pct(lat, 50), p99=pct(lat, 99)),
+                   retrieval_ms=dict(p50=pct(ret, 50), all=ret),
+                   retrieval_chunk=FAM_CAND_CHUNK,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        out[arch_id] = row
+        del params, scores
+        torch.cuda.empty_cache()
+    return out
+
+
+def _moved(b, R, shift):
+    return dict(b, positions=b["positions"] @ R.T + shift)
+
+
+def nequip_phase(dev):
+    """21c: NequIP (5 layers, 32 channels, l_max 2) in the molecule cell
+    (128 graphs of 30 atoms and 64 edges): ``energy_and_forces`` p50,
+    the second-order train step's p50 over 4 steps, and energies
+    invariant (1e-5) and forces equivariant (1e-4), relative to their
+    largest |value|, under a random rotation plus a translation."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data import graphs as G
+    from repro_torch.models import nequip as NQ
+    from repro_torch.train import trainer as TTR
+
+    arch = registry.get("nequip")
+    cfg = arch.cfg
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = NQ.init_params(torch.Generator(device=dev).manual_seed(25),
+                            cfg, device=dev)
+    gen = torch.Generator().manual_seed(25)
+
+    def batch(seed):
+        b = G.batch_small_graphs(seed, MOL_GRAPHS, MOL_NODES, MOL_EDGES,
+                                 n_species=cfg.n_species)
+        b.pop("n_graphs")
+        b = {k: torch.from_numpy(v) for k, v in b.items()}
+        b["energy"] = torch.randn(MOL_GRAPHS, generator=gen)
+        b["forces"] = torch.randn(b["positions"].shape, generator=gen) * 0.1
+        return b
+
+    b0 = {k: v.to(dev) for k, v in batch(0).items()}
+    b0["n_graphs"] = MOL_GRAPHS
+    ef = []
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        NQ.energy_and_forces(params, b0, cfg)
+        end.record()
+        end.synchronize()
+        ef.append(start.elapsed_time(end))
+    R = torch.from_numpy(np.linalg.qr(np.random.default_rng(25)
+                                      .standard_normal((3, 3)))[0]
+                         .astype(np.float32)).to(dev)
+    shift = torch.tensor([3.7, -1.2, 0.4], device=dev)
+    with torch.no_grad():
+        e0 = NQ.forward(params, b0, cfg)
+        e1 = NQ.forward(params, _moved(b0, R, shift), cfg)
+    _, f0 = NQ.energy_and_forces(params, b0, cfg)
+    _, f1 = NQ.energy_and_forces(params, _moved(b0, R, shift), cfg)
+    e_rel = float((e1 - e0).abs().max() / e0.abs().max())
+    f_rel = float((f1 - f0 @ R.T).abs().max() / f0.abs().max())
+    check(e_rel <= 1e-5, f"21c: energies moved by {e_rel} under E(3)")
+    check(f_rel <= 1e-4, f"21c: forces not equivariant ({f_rel})")
+    state = TTR.init_state(25, params, arch.train_cfg)
+    step = TTR.make_train_step(arch.loss_fn(n_graphs=MOL_GRAPHS),
+                               arch.train_cfg)
+    state, ms, losses = _timed_steps(step, state,
+                                     [batch(1 + i) for i in range(FAM_STEPS)])
+    row = _train_row("nequip", params, ms, losses, MOL_GRAPHS)
+    row["graphs_per_s"] = row.pop("rows_per_s")
+    row["profile"] = _profiled_step(step, state, batch(1 + FAM_STEPS))
+    row.update(atoms=MOL_GRAPHS * MOL_NODES, edges=MOL_GRAPHS * MOL_EDGES,
+               energy_and_forces_ms=dict(p50=pct(sorted(ef[1:]), 50),
+                                         all=ef),
+               invariance_rel=e_rel, equivariance_rel=f_rel)
+    del params, state, step
+    torch.cuda.empty_cache()
+    return row
+
+
+def families_card_vs_cpu(dev):
+    """21d: each of the five ids at ``reduced_arch`` for 3 steps on the
+    card and on the CPU from the same parameters and batches: losses to
+    1e-4 relative; then the launcher's kill and resume for nequip on the
+    card (its ``main``, in process, under deterministic algorithms):
+    ``--die-at-step 3`` exits 42, the rerun resumes from step 2 and
+    prints step 3's line EQUAL."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import train as TL
+    from repro_torch.models import convert
+    from repro_torch.train import trainer as TTR
+
+    out = {}
+    for arch_id in FAM_IDS:
+        arch = TL.reduced_arch(registry.get(arch_id))
+        p_cpu = arch.model.init_params(torch.Generator().manual_seed(26),
+                                       arch.cfg, device="cpu")
+        p_dev = convert.params_from_numpy(convert.params_to_numpy(p_cpu),
+                                          arch.cfg, device=dev)
+        runs = []
+        for params in (p_cpu, p_dev):
+            stream = TL.make_stream(arch, FAM_SMALL_BATCH, 0, 26)
+            state = TTR.init_state(26, params, arch.train_cfg)
+            step = TTR.make_train_step(TL.stream_loss(arch, stream),
+                                       arch.train_cfg)
+            losses = []
+            for _ in range(FAM_SMALL_STEPS):
+                state, m = step(state, stream.next())
+                losses.append(float(m["loss"]))
+            runs.append(losses)
+        (l_cpu, l_dev) = runs
+        rel = max(abs(a - b) / abs(b) for a, b in zip(l_dev, l_cpu))
+        out[arch_id] = dict(loss_rel=rel, cpu=l_cpu, card=l_dev)
+        check(rel <= 1e-4, f"21d {arch_id}: card {l_dev} vs cpu {l_cpu}")
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        argv = ["--arch", "nequip", "--reduced", "--device",
+                TRAIN_LAUNCH_DEVICE, "--steps", "6", "--batch", "32",
+                "--ckpt-dir", tmp,
+                "--ckpt-every", "2", "--log-every", "1"]
+        runs = []
+        for extra in (["--die-at-step", "3"], []):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                try:
+                    rc = TL.main(argv + extra)
+                except SystemExit as e:
+                    rc = e.code
+            runs.append(dict(rc=rc, seconds=time.perf_counter() - t0,
+                             stdout=buf.getvalue()[-2000:]))
+        died, resumed = runs
+        check(died["rc"] == 42 and "[failure-sim] dying at step 3"
+              in died["stdout"], f"21d: launcher run 1 {died}")
+        check(resumed["rc"] == 0 and "[restore] resumed from step 2"
+              in resumed["stdout"] and "[done]" in resumed["stdout"],
+              f"21d: launcher run 2 {resumed}")
+        step3 = [ln.split("(")[0] for r in runs
+                 for ln in r["stdout"].splitlines()
+                 if ln.startswith("step     3 ")]
+        check(len(step3) == 2 and step3[0] == step3[1],
+              f"21d: step 3 lines {step3}")
+        out["launcher"] = runs
+    check(not torch.are_deterministic_algorithms_enabled(),
+          "21d: the launcher left deterministic algorithms on")
+    return out
+
+
+def families_phase(results, dev):
+    """Phase 21 (run right after phase 20): 21a-d.  Returns kernel 2's
+    ``sasrec`` entry for the kernels line: its time at the catalog's
+    shape and the scans and merges of 21a's requests."""
+    card = results["device"]["nvidia_smi"]
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    scans, merges, row = sasrec_phase(dev)
+    row["seconds"] = time.perf_counter() - t0
+    results["families_21a"] = row
+    log("families_21a", card=card,
+        **{k: v for k, v in row.items() if k not in ("train", "request_ms")},
+        train={k: v for k, v in row["train"].items()
+               if k not in ("step_ms", "profile")},
+        profile={k: v for k, v in row["train"]["profile"].items()
+                 if k != "top_device_ms"},
+        request_ms={k: {q: v[q] for q in ("p50", "p99")}
+                    for k, v in row["request_ms"].items()})
+    for key, fn in (("21b", recsys_phase), ("21c", nequip_phase),
+                    ("21d", families_card_vs_cpu)):
+        t0 = time.perf_counter()
+        results[f"families_{key}"] = fn(dev)
+        results[f"families_{key}"]["seconds"] = time.perf_counter() - t0
+    log("families_21b", card=card, **results["families_21b"])
+    log("families_21c", card=card, **results["families_21c"])
+    log("families_21d", card=card,
+        **{k: v for k, v in results["families_21d"].items()
+           if k != "launcher"},
+        launcher=[{k: r[k] for k in ("rc", "seconds")}
+                  for r in results["families_21d"]["launcher"]])
+    results["families_seconds"] = time.perf_counter() - t_phase
+    log("families_phase", card=card, seconds=results["families_seconds"])
+    return dict(row["kernel2_times"], launches=scans, merge_launches=merges,
+                max_abs_err=max(c["max_abs_err"] for c in
+                                row["kernel2_vs_plain"]["topk"].values()))
+
+
 def ann_phases(results, dev):
     """Phases 3-8 and 13-18 over phase 3's index; returns the rows of
     kernels 1-6 for the ``kernels`` line (every tensor of these phases
@@ -3397,51 +4003,27 @@ def ann_phases(results, dev):
     # -- 4. kernels against their plain versions ------------------------
     q8 = queries[:REQ_M]
     d_pad = payload.codes.shape[1] * Q.codes_per_word(payload.b)
-    V_abs = Q.unpack_codes(payload.codes, d_pad, payload.b).float().abs()
     max_err = {"ash_score": 0.0, "ash_score_topk": 0.0}
     compare = {}
     for metric in ("dot", "l2", "cos"):
         idx_m = index if metric == "dot" else AshIndex.from_parts(
             model, payload, metric=metric)
-        prep = idx_m.prepare(q8)
-        args = ops._score_args(prep, payload)
-        qterm, rowterm = ops._metric_operands(model, prep, payload,
-                                              idx_m.stats, metric)
-        got = TK.ash_score_cuda(*args, qterm, rowterm, b=payload.b,
-                                metric=metric)
-        want = ref.ash_score_metric_ref(*args, qterm, rowterm, b=payload.b,
-                                        metric=metric)
-        codes, qp, scale, offset, cluster, ipq = args
-        Amat = (qp.abs() @ V_abs.T) * scale.abs()[None, :]
-        bias = ipq[:, cluster.long()]
-        tol = ref.score_tolerance(Amat, bias, offset, qterm, rowterm,
-                                  want, metric, d_pad)
-        err = (got - want).abs()
-        ratio = float((err / tol).max())
-        check(ratio <= 1.0, f"{metric}: |kernel - plain| above bound "
-                            f"(max ratio {ratio})")
-        max_err["ash_score"] = max(max_err["ash_score"], float(err.max()))
-        # fused kernel vs its plain version: scores within the bound,
-        # ids equal wherever the score gap exceeds it
-        ts, ti = TK.ash_score_topk_cuda(*args, qterm, rowterm, b=payload.b,
-                                        k=K, metric=metric)
-        ps, pi = ref.ash_score_topk_ref(*args, qterm, rowterm, None,
-                                        b=payload.b, k=K, metric=metric)
+        # kernel 1 within the bound; the fused kernel EQUAL to the stable
+        # top-k of kernel 1 and, against its plain version, scores within
+        # the bound and ids equal wherever the score gap exceeds it
+        flat, c = flat_scan_check(idx_m, q8, (K,), metric, metric=metric)
+        args, qterm, rowterm, got = (
+            flat[k] for k in ("args", "qterm", "rowterm", "got"))
+        del flat
+        max_err["ash_score"] = max(max_err["ash_score"], c["max_abs_err"])
         max_err["ash_score_topk"] = max(max_err["ash_score_topk"],
-                                        float((ts - ps).abs().max()))
-        row_tol = tol.max(dim=1, keepdim=True).values
-        differ = ti != pi
-        gap = (want.gather(1, ti.long()) - want.gather(1, pi.long())).abs()
-        check(bool((gap[differ] <= 2 * row_tol.expand_as(gap)[differ])
-                   .all()), f"{metric}: top-k ids differ beyond the bound")
-        check(bool(((ts - ps).abs() <= row_tol).all()),
-              f"{metric}: top-k scores beyond the bound")
+                                        c["topk"][K]["max_abs_err"])
         # fused == stable two-key sort of the materializing kernel
         rv = torch.rand(N, device=dev, generator=torch.Generator(
             device=dev).manual_seed(7)) > 0.1
-        exact_eq = []
-        for n_valid, row_valid in ((None, None), (None, rv),
-                                   (N - 12345, None), (N - 12345, rv)):
+        exact_eq = [c["topk"][K]["fused_equals_sorted"]]
+        for n_valid, row_valid in ((None, rv), (N - 12345, None),
+                                   (N - 12345, rv)):
             fs, fi = TK.ash_score_topk_cuda(*args, qterm, rowterm, n_valid,
                                             row_valid, b=payload.b, k=K,
                                             metric=metric)
@@ -3473,15 +4055,15 @@ def ann_phases(results, dev):
                                                    device=dev), 10, 4)
         exact_tiles = bool(torch.equal(fs, ws) and torch.equal(fi, wi))
         check(exact_tiles, f"{metric}: fused k~ < k != per-tile selection")
-        compare[metric] = dict(max_abs_err=float(err.max()),
-                               max_err_over_bound=ratio,
-                               max_bound=float(tol.max()),
-                               topk_id_mismatch=int(differ.sum()),
+        compare[metric] = dict(max_abs_err=c["max_abs_err"],
+                               max_err_over_bound=c["max_err_over_bound"],
+                               max_bound=c["max_bound"],
+                               topk_id_mismatch=c["topk"][K]["id_mismatch"],
                                fused_equals_sorted=exact_eq,
                                fused_ascending_equals_sorted=exact_asc,
                                fused_k_tilde_below_k_equals_tiles=exact_tiles)
         log("compare", metric=metric, **compare[metric])
-    del V_abs, Amat, bias, tol, err, got, want
+    del got
     results["compare"] = compare
 
     # -- 4b. gathered and coarse kernels against their plain versions ----
@@ -3784,38 +4366,10 @@ def ann_phases(results, dev):
     args = ops._score_args(prep, payload)
     n, wd = payload.codes.shape
     C = args[5].shape[1]
-    V32 = Q.unpack_codes(payload.codes, d_pad, payload.b).float()
-    qp = args[1]
-    flops = 2 * REQ_M * n * d_pad + 3 * REQ_M * n
-    in_bytes = (n * wd * 4 + REQ_M * d_pad * 4 + 3 * n * 4 + REQ_M * C * 4)
-    rows = []
-    for name, fn, plain_fn, lib_fn, lib_call, out_bytes, line in (
-        ("ash_score",
-         lambda: TK.ash_score_cuda(*args, b=payload.b),
-         lambda: ref.ash_score_metric_ref(*args, None, None, b=payload.b),
-         lambda: torch.matmul(qp, V32.T),
-         "torch.matmul on pre-dequantized fp32 codes",
-         REQ_M * n * 4, 368),
-        ("ash_score_topk",
-         lambda: TK.ash_score_topk_cuda(*args, b=payload.b, k=K),
-         lambda: ref.ash_score_topk_ref(*args, None, None, None,
-                                        b=payload.b, k=K),
-         lambda: torch.topk(torch.matmul(qp, V32.T), K, dim=1),
-         "torch.topk(torch.matmul) on pre-dequantized fp32 codes",
-         REQ_M * K * 8, 428),
-    ):
-        bound_ms, bound_by = bound(flops / PEAK_FP32_FLOPS * 1e3,
-                                   in_bytes + out_bytes)
-        rows.append(dict(
-            name=name, route="cuda",
-            source="src/repro_torch/kernels/csrc/ash_score.cu",
-            replaces=f"src/repro/kernels/ash_score.py:{line}",
-            launches=launches[name],
-            max_abs_err=max_err[name],
-            ms=probe.graph_ms(fn), plain_ms=event_ms(plain_fn, iters=10),
-            bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=event_ms(lib_fn), library_call=lib_call,
-        ))
+    rows = flat_scan_rows(index, q8)
+    for row in rows:
+        row.update(launches=launches[row["name"]],
+                   max_abs_err=max_err[row["name"]])
     # gathered kernels at the IVF request shape: the 8 queries' nprobe=8
     # candidate table; codes and headers of each distinct live row are
     # counted once, the row table and the output once per slot
@@ -3947,7 +4501,7 @@ def ann_phases(results, dev):
             fused_split["ash_score_gather_topk"]["scan_ms"]}
     log("scans", **results["scans"])
     log("gather_shape", **results["gather_shape"])
-    del V32, Vg, V8
+    del Vg, V8
 
     # -- 7b. where a request's time goes (torch.profiler) ---------------
     results["profile_fused_request"] = profile_requests(
@@ -4159,7 +4713,14 @@ def main() -> int:
     # -- 20. LM training, right after phase 19 on the freed memory --------
     train_phase(results, dev)
 
+    # -- 21. the recommender and interatomic families, on what 20 freed ---
+    k2_sasrec = families_phase(results, dev)
+
     rows = ann_phases(results, dev)
+    k2 = next(r for r in rows if r["name"] == "ash_score_topk")
+    k2["launches"] += k2_sasrec["launches"]
+    k2["merge_launches"] += k2_sasrec["merge_launches"]
+    k2["sasrec"] = k2_sasrec
     rows.append(lm_phases(results, dev))
     rows[-1]["launches"] += k7_granite
     rows[-1]["granite"] = granite_row

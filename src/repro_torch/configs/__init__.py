@@ -5,7 +5,9 @@ Each LM module holds the reference's ``CFG``, its ``train_cfg`` as
 ``ashkv_config()``, CFG in the ``decode_32k_ashkv`` cell of
 ``repro.configs.base.lm_cells`` (:data:`DECODE_32K_ASHKV`): decode at a
 32k context with the ASH-compressed KV cache, b = 4, d_code = d_head.
-``registry.get`` finds an LM config by the reference's arch id.
+``sasrec_cfg``, ``dcn_v2``, ``fm``, ``autoint`` and ``nequip_cfg`` hold
+the other families' ``CFG`` and ``TRAIN_CFG``.  ``registry.get`` finds
+any of the ten by the reference's arch id.
 """
 import dataclasses
 

@@ -10,7 +10,11 @@ million-row set is made on the card.
 is a pure function of (seed, t) with the reference's Markov recurrence
 (:func:`markov_tokens`), its draws from a CPU ``torch.Generator``
 seeded ``fold_seed(seed, t)`` (not jax.random's bits); a checkpointed
-``IteratorState`` cursor restarts it exactly.
+``IteratorState`` cursor restarts it exactly.  ``ClickStream`` (CTR
+batches with the reference's planted rule) and ``SequenceStream``
+(SASRec histories with its drifting item walk) draw the same way; their
+transformations of the draws are :func:`click_batch` and
+:func:`sequence_batch`, which also take the reference's own draws.
 """
 from __future__ import annotations
 
@@ -134,3 +138,74 @@ class TokenStream:
         tokens = markov_tokens(start, steps, self.vocab)
         self.state.step += 1
         return {"tokens": tokens, "labels": tokens}
+
+
+def click_batch(sparse: torch.Tensor, dense: torch.Tensor,
+                uniform: torch.Tensor) -> dict:
+    """The reference's planted CTR rule over its draws: ``sparse``
+    (B, F) ids, ``dense`` (B, nd) N(0, 1), ``uniform`` (B,) U[0, 1).
+    A row's score counts its ids divisible by 5, less half its mean
+    dense feature; the label is 1 where ``uniform`` < sigmoid(score -
+    the batch's mean score) (the reference's ``bernoulli``)."""
+    n_dense = dense.shape[1]
+    score = ((sparse % 5 == 0).to(torch.float32).sum(-1)
+             - 0.5 * dense.sum(-1) / max(n_dense, 1))
+    p = torch.sigmoid(score - score.mean())
+    return {"sparse": sparse.to(torch.int32),
+            "dense": dense.to(torch.float32),
+            "labels": (uniform < p).to(torch.float32)}
+
+
+class ClickStream:
+    """Synthetic CTR batches with a learnable planted rule
+    (:func:`click_batch`); batch t is a pure function of (seed, t)."""
+
+    def __init__(self, state: IteratorState, batch: int, n_dense: int,
+                 n_sparse: int, vocab: int):
+        self.state = state
+        self.batch, self.n_dense = batch, n_dense
+        self.n_sparse, self.vocab = n_sparse, vocab
+
+    def next(self) -> dict:
+        gen = torch.Generator().manual_seed(
+            fold_seed(self.state.seed, self.state.step))
+        sparse = torch.randint(0, self.vocab, (self.batch, self.n_sparse),
+                               generator=gen)
+        dense = torch.randn(self.batch, self.n_dense, generator=gen)
+        uniform = torch.rand(self.batch, generator=gen)
+        self.state.step += 1
+        return click_batch(sparse, dense, uniform)
+
+
+def sequence_batch(start: torch.Tensor, drift: torch.Tensor,
+                   negatives: torch.Tensor, n_items: int) -> dict:
+    """The reference's user histories over its draws: row b walks from
+    ``start[b]`` in [1, n_items) by the cumulative ``drift`` (B, S) in
+    [1, 17), wrapped into [1, n_items); labels are the next item (0 at
+    the last position); ``negatives`` (n_neg,) pass through."""
+    seq = (start.long()[:, None] + torch.cumsum(drift.long(), dim=1)) % (
+        n_items - 1) + 1
+    labels = torch.roll(seq, -1, dims=1)
+    labels[:, -1] = 0
+    return {"seq": seq.to(torch.int32), "labels": labels.to(torch.int32),
+            "negatives": negatives.to(torch.int32)}
+
+
+class SequenceStream:
+    """SASRec-style user histories with sequential structure
+    (:func:`sequence_batch`); batch t is a pure function of (seed, t)."""
+
+    def __init__(self, state: IteratorState, batch: int, seq: int,
+                 n_items: int, n_neg: int = 128):
+        self.state = state
+        self.batch, self.seq = batch, seq
+        self.n_items, self.n_neg = n_items, n_neg
+
+    def next(self) -> dict:
+        gen = torch.Generator().manual_seed(
+            fold_seed(self.state.seed, self.state.step))
+        start = torch.randint(1, self.n_items, (self.batch,), generator=gen)
+        drift = torch.randint(1, 17, (self.batch, self.seq), generator=gen)
+        negs = torch.randint(1, self.n_items, (self.n_neg,), generator=gen)
+        self.state.step += 1
+        return sequence_batch(start, drift, negs, self.n_items)

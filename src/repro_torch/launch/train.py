@@ -8,9 +8,15 @@ when asked for)::
       --steps 100 --batch 8 --seq 128 --reduced --device cpu \\
       --ckpt-dir /tmp/ckpt
 
-``--reduced`` scales the architecture down (layers, widths, vocab) so
-any LM config trains on a CPU; without it the arch trains at its full
-widths and depth.  The loop is fault tolerant: it resumes from the
+``--reduced`` scales the architecture down (layers, widths, vocab,
+tables) so any of the ten ids trains on a CPU; without it the arch
+trains at its full widths and depth.  Batches: an LM's ``TokenStream``
+(``--batch`` sequences of ``--seq`` tokens), sasrec's
+``SequenceStream`` and the recsys models' ``ClickStream`` (``--batch``
+rows at the config's widths), and for nequip ``batch // 8`` small
+molecules of 12 atoms and 32 edges a batch (``data.graphs.
+batch_small_graphs``) with energy and force targets from a seeded
+generator.  The loop is fault tolerant: it resumes from the
 latest committed checkpoint (state, data cursor and seed), and
 ``--die-at-step N`` exits with code 42 at step N (after the save in
 flight is committed, so the resume point does not depend on the
@@ -32,29 +38,45 @@ import time
 import torch
 
 from repro_torch.configs import registry
-from repro_torch.data.synthetic import IteratorState, TokenStream
+from repro_torch.data import graphs as G
+from repro_torch.data.synthetic import (
+    ClickStream, IteratorState, SequenceStream, TokenStream, fold_seed,
+)
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer as TT
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.trainer import init_state, make_train_step
 
 
 def reduced_arch(arch):
-    """Scale an LM config down to CPU size, same family and topology:
-    2 layers, d_model 64, vocab 512, fp32, at most 8 experts; one
-    microbatch and a 10-step warmup."""
+    """Scale a config down to CPU size, same family and topology, as the
+    reference's: an LM to 2 layers, d_model 64, vocab 512, fp32, at most
+    8 experts; nequip to 2 layers of 8 channels; sasrec to 1,000 items
+    of 16 dims, seq 16, 32 negatives; a recsys model to 1,000 rows a
+    field of 8 dims (DCN-v2's MLP 64, 32).  One microbatch and a 10-step
+    warmup."""
     cfg = arch.cfg
-    moe = cfg.moe
-    if moe is not None:
-        moe = dataclasses.replace(moe, n_experts=min(moe.n_experts, 8),
-                                  d_ff=64, group_size=64)
-    return dataclasses.replace(
-        arch,
-        cfg=dataclasses.replace(
+    if arch.family == "transformer":
+        moe = cfg.moe
+        if moe is not None:
+            moe = dataclasses.replace(moe, n_experts=min(moe.n_experts, 8),
+                                      d_ff=64, group_size=64)
+        cfg = dataclasses.replace(
             cfg, n_layers=2, d_model=64, n_heads=4,
             n_kv_heads=min(cfg.n_kv_heads, 4), d_head=16, d_ff=128,
             vocab=512, moe=moe, dtype=torch.float32,
-            param_dtype=torch.float32, q_chunk=0),
+            param_dtype=torch.float32, q_chunk=0)
+    elif arch.family == "nequip":
+        cfg = dataclasses.replace(cfg, n_layers=2, channels=8)
+    elif arch.family == "sasrec":
+        cfg = dataclasses.replace(cfg, n_items=1000, embed_dim=16,
+                                  seq_len=16, n_neg=32)
+    else:  # recsys
+        kw = dict(vocab_per_field=1000, embed_dim=8)
+        if cfg.kind == "dcn_v2":
+            kw["mlp_dims"] = (64, 32)
+        cfg = dataclasses.replace(cfg, **kw)
+    return dataclasses.replace(
+        arch, cfg=cfg,
         train_cfg=dataclasses.replace(
             arch.train_cfg, microbatches=1,
             opt=dataclasses.replace(arch.train_cfg.opt, warmup_steps=10,
@@ -62,11 +84,58 @@ def reduced_arch(arch):
     )
 
 
+class GraphStream:
+    """NequIP batches: ``n_graphs`` small molecules of 12 atoms and 32
+    edges, ``batch_small_graphs(seed * 100003 + step, ...)`` as the
+    reference's launcher draws them, with per-graph energies N(0, 1)
+    and forces N(0, 0.01) from a CPU generator seeded ``fold_seed(seed,
+    step)``.  ``n_graphs`` is static; the loss closes over it
+    (:func:`stream_loss`)."""
+
+    def __init__(self, state: IteratorState, n_graphs: int, n_species: int):
+        self.state = state
+        self.n_graphs, self.n_species = n_graphs, n_species
+
+    def next(self) -> dict:
+        b = G.batch_small_graphs(
+            self.state.seed * 100003 + self.state.step,
+            n_graphs=self.n_graphs, nodes_per=12, edges_per=32,
+            n_species=self.n_species)
+        b.pop("n_graphs")
+        b = {k: torch.from_numpy(v) for k, v in b.items()}
+        gen = torch.Generator().manual_seed(
+            fold_seed(self.state.seed, self.state.step))
+        b["energy"] = torch.randn(self.n_graphs, generator=gen)
+        b["forces"] = torch.randn(b["positions"].shape, generator=gen) * 0.1
+        self.state.step += 1
+        return b
+
+
 def make_stream(arch, batch: int, seq: int, seed: int, step: int = 0):
-    if arch.family != "transformer":
-        raise ValueError(arch.family)
-    return TokenStream(IteratorState(seed=seed, step=step), batch, seq,
-                       arch.cfg.vocab)
+    """The arch family's batch stream from ``step`` on (``seq`` is the
+    LMs' sequence length; the other families take theirs from the
+    config)."""
+    st = IteratorState(seed=seed, step=step)
+    cfg = arch.cfg
+    if arch.family == "transformer":
+        return TokenStream(st, batch, seq, cfg.vocab)
+    if arch.family == "sasrec":
+        return SequenceStream(st, batch, cfg.seq_len, cfg.n_items,
+                              cfg.n_neg)
+    if arch.family == "recsys":
+        return ClickStream(st, batch, cfg.n_dense, cfg.n_sparse,
+                           cfg.vocab_per_field)
+    if arch.family == "nequip":
+        return GraphStream(st, max(batch // 8, 1), cfg.n_species)
+    raise ValueError(arch.family)
+
+
+def stream_loss(arch, stream):
+    """The arch's ``loss_fn(params, batch)`` over ``stream``'s batches:
+    NequIP's closes over the stream's static graph count."""
+    if isinstance(stream, GraphStream):
+        return arch.loss_fn(n_graphs=stream.n_graphs)
+    return arch.loss_fn()
 
 
 def main(argv=None):
@@ -102,10 +171,8 @@ def _run(args) -> int:
         arch = reduced_arch(arch)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = TT.init_params(gen, arch.cfg, device=dev)
+    params = arch.model.init_params(gen, arch.cfg, device=dev)
     state = init_state(args.seed, params, arch.train_cfg)
-    step_fn = make_train_step(arch.loss_fn(), arch.train_cfg)
-
     start_step = 0
     mgr = None
     if args.ckpt_dir:
@@ -119,6 +186,7 @@ def _run(args) -> int:
 
     stream = make_stream(arch, args.batch, args.seq, args.seed,
                          step=start_step)
+    step_fn = make_train_step(stream_loss(arch, stream), arch.train_cfg)
 
     t0 = time.time()
     for i in range(start_step, args.steps):

@@ -5,8 +5,10 @@ RoPE and grouped-query attention, with the reference's layouts (heads
 in the second-to-last axis, weights applied as ``x @ W``) and its
 rounding points: reductions and softmax in fp32, results cast back to
 the activation dtype where the reference casts.  The two training
-losses compute in fp32, as the reference's; ``layer_norm`` and
-``embedding_bag`` come with the recsys slice.
+losses compute in fp32, as the reference's.  ``layer_norm``,
+``segment_sum`` and ``embedding_bag`` serve the recommender and
+interatomic families; ``make_trainable`` is their training hook (a
+nested dict/list parameter tree is its own training tree).
 """
 from __future__ import annotations
 
@@ -37,6 +39,16 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = x.to(torch.float32).square().mean(dim=-1, keepdim=True)
     inv = torch.rsqrt(var + eps).to(x.dtype)
     return x * inv * scale.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Statistics and the affine map in fp32, output in x's dtype."""
+    x32 = x.to(torch.float32)
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * scale + bias).to(x.dtype)
 
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
@@ -137,3 +149,68 @@ def binary_cross_entropy(logits: torch.Tensor,
     logits = logits.to(torch.float32)
     return (torch.clamp(logits, min=0) - logits * labels
             + torch.log1p(torch.exp(-logits.abs()))).mean()
+
+
+# ---------------------------------------------------------------------------
+# Segment sums and EmbeddingBag
+# ---------------------------------------------------------------------------
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """``jax.ops.segment_sum``: row i of ``data`` added to row
+    ``segment_ids[i]`` of a zero (num_segments, ...) tensor, with
+    ``index_add`` (every id must lie in [0, num_segments)); under
+    ``torch.use_deterministic_algorithms(True)`` the card sums in a
+    fixed order."""
+    out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
+    return out.index_add(0, segment_ids.long(), data)
+
+
+def embedding_bag(
+    table: torch.Tensor,  # (vocab, dim)
+    indices: torch.Tensor,  # (n_lookups,)
+    segment_ids: torch.Tensor,  # (n_lookups,) which bag each lookup joins
+    num_bags: int,
+    weights: Optional[torch.Tensor] = None,
+    combiner: str = "sum",
+) -> torch.Tensor:
+    """Multi-hot embedding lookup + per-bag reduction: (num_bags, dim);
+    ``combiner`` ``sum`` or ``mean`` (an empty bag's mean is 0)."""
+    rows = table.index_select(0, indices.long())
+    if weights is not None:
+        rows = rows * weights[:, None]
+    summed = segment_sum(rows, segment_ids, num_bags)
+    if combiner == "sum":
+        return summed
+    if combiner == "mean":
+        counts = segment_sum(torch.ones_like(segment_ids, dtype=rows.dtype),
+                             segment_ids, num_bags)
+        return summed / torch.clamp(counts[:, None], min=1.0)
+    raise ValueError(combiner)
+
+
+# ---------------------------------------------------------------------------
+# Training hooks of the families whose parameters are plain trees
+# ---------------------------------------------------------------------------
+
+
+def tree_items(tree, path=()):
+    """(path, leaf) pairs of a nested dict/list of tensors in the
+    reference's flatten order: dict keys sorted, lists in order."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree) for kv in tree_items(tree[k],
+                                                              path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, x in enumerate(tree) for kv in tree_items(
+            x, path + (i,))]
+    return [(path, tree)]
+
+
+def make_trainable(params):
+    """A nested dict/list parameter tree is its own training tree: every
+    leaf gets ``requires_grad`` (the optimizer updates it in place)."""
+    for _, leaf in tree_items(params):
+        leaf.requires_grad_(True)
+    return params
+

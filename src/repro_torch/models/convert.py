@@ -7,7 +7,10 @@ per-layer weights, and ``params_to_numpy`` gives the port's parameters
 back as that stacked tree.  Cache trees keep their layout; packed uint32
 words travel as int32 bit patterns, as everywhere in the port, and bf16
 arrays (numpy's ``bfloat16`` extension dtype) keep their bits.
-Training states convert in ``repro_torch.train.checkpoint``.
+The other families (``sasrec``, ``recsys``, ``nequip``) keep the
+reference's nested dict/list tree as their parameters, so theirs cross
+leaf by leaf, bit for bit.  Training states convert in
+``repro_torch.train.checkpoint``.
 """
 from __future__ import annotations
 
@@ -33,14 +36,17 @@ def tensor_from_numpy(a, device=None) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
-def params_from_numpy(tree: dict, cfg: TransformerConfig, *,
-                      device="cuda") -> Transformer:
+def params_from_numpy(tree: dict, cfg, *, device="cuda"):
     """The reference's ``init_params`` tree (numpy leaves) as the port's
-    parameters; layer weights in ``cfg.param_dtype``, the ASH-KV
-    projections and an MoE ``router`` (L, D, E) in fp32, the experts'
-    ``w_gate``/``w_up`` (L, E, D, F) and ``w_down`` (L, E, F, D) in
-    ``cfg.param_dtype``."""
+    parameters.  For a ``TransformerConfig``, a ``Transformer``: layer
+    weights in ``cfg.param_dtype``, the ASH-KV projections and an MoE
+    ``router`` (L, D, E) in fp32, the experts' ``w_gate``/``w_up``
+    (L, E, D, F) and ``w_down`` (L, E, F, D) in ``cfg.param_dtype``.
+    For the other families' configs, the same tree of tensors with the
+    leaves' bits."""
     dev = resolve_device(device)
+    if not isinstance(cfg, TransformerConfig):
+        return tree_from_numpy(tree, dev)
 
     def t(a, dtype):
         return tensor_from_numpy(a, dev).to(dtype)
@@ -76,10 +82,13 @@ def _numpy(t: torch.Tensor):
     return t.numpy()
 
 
-def params_to_numpy(params: Transformer) -> dict:
-    """The port's parameters as the reference's tree: nested dicts, layer
-    weights stacked along L (a trainable model's own tree; otherwise
-    stacked here), numpy leaves with the tensors' dtypes."""
+def params_to_numpy(params) -> dict:
+    """The port's parameters as the reference's tree: nested dicts (and
+    lists), a transformer's layer weights stacked along L (a trainable
+    model's own tree; otherwise stacked here), numpy leaves with the
+    tensors' dtypes."""
+    if not isinstance(params, Transformer):
+        return tree_to_numpy(params)
     if params.tree is not None:
         return tree_to_numpy(params.tree)
     out: dict = {}
@@ -93,17 +102,21 @@ def params_to_numpy(params: Transformer) -> dict:
 
 
 def tree_to_numpy(tree):
-    """A nested dict of tensors as the same dict of numpy copies."""
+    """A nested dict/list of tensors as the same tree of numpy copies."""
     if isinstance(tree, dict):
         return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to_numpy(v) for v in tree]
     return _numpy(tree)
 
 
 def tree_from_numpy(tree, device):
-    """A nested dict of numpy arrays as the same dict of tensors on
+    """A nested dict/list of numpy arrays as the same tree of tensors on
     ``device``."""
     if isinstance(tree, dict):
         return {k: tree_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_from_numpy(v, device) for v in tree]
     return tensor_from_numpy(tree, device)
 
 

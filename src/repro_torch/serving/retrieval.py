@@ -77,9 +77,13 @@ def serve_topk(
 
 def sasrec_retrieve(params, seq, index: AshIndex, cfg, k: int = 10, *,
                     engine: QueryEngine | None = None):
-    """SASRec next-item retrieval over the compressed catalog: waits for
-    the SASRec model's port."""
-    raise NotImplementedError(
-        "sasrec_retrieve needs models/sasrec.py, which is not ported yet: "
-        "ROADMAP queue 1 item 13c"
-    )
+    """End-to-end SASRec next-item retrieval over the compressed
+    catalog: user sequences (B, S) -> user states (on the parameters'
+    device, no autograd) -> engine-batched ASH MIPS.  Returns CPU
+    tensors of scores and ids, each (B, k)."""
+    from repro_torch.models import sasrec as SR
+
+    with torch.no_grad():
+        u = SR.user_state(params, torch.as_tensor(seq).to(
+            params["item_emb"].device), cfg)
+    return serve_topk(index, u, k=k, engine=engine)

@@ -6,8 +6,8 @@ the Newton-Schulz iteration of the ASH learner's Procrustes step).
 The API mirrors the reference's (and optax's): ``init(params) ->
 state``; ``update(grads, state, params) -> (updates, state)``; updates
 are ADDED by ``apply_updates``.  ``params``, ``grads`` and the moment
-buffers are trees: nested dicts of tensors, flattened in sorted key
-order as the reference's pytrees, each leaf the reference's leaf (a
+buffers are trees: nested dicts and lists of tensors, flattened as the
+reference's pytrees, each leaf the reference's leaf (a
 transformer's layer weights stacked along L: ``models.transformer.
 make_trainable``).  Every rule sees the stacked leaf, so Adafactor's
 column statistic of an (L, D) norm scale is a mean over layers and
@@ -56,14 +56,17 @@ class OptConfig:
 
 
 # ---------------------------------------------------------------------------
-# Trees: nested dicts of tensors, leaves in sorted key order
+# Trees: nested dicts and lists of tensors, in the reference's pytree
+# order (dict keys sorted, lists in order)
 # ---------------------------------------------------------------------------
 
 
 def tree_leaves(tree) -> list:
-    """The leaves of a nested dict, keys sorted at every level."""
+    """The leaves of a nested dict/list, keys sorted at every level."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for t in tree for x in tree_leaves(t)]
     return [tree]
 
 
@@ -73,6 +76,9 @@ def tree_map(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [tree_map(fn, t, *(r[i] for r in rest))
+                for i, t in enumerate(tree)]
     return fn(tree, *rest)
 
 

@@ -3,9 +3,12 @@ microbatched (gradient-accumulation) step with mixed precision, optional
 gradient compression, and a ``TrainState`` that checkpoints and
 restores in the reference's layout.
 
-The parameters are a ``models.transformer.Transformer``; ``init_state``
-makes it trainable, and the optimizer works on its stacked tree (the
-reference's leaves), updating it in place.  The step returns a new
+The parameters are a ``models.transformer.Transformer`` or another
+family's nested dict/list tree (``models.sasrec``, ``recsys``,
+``nequip``); :func:`trainable` is the one family hook: it makes them
+trainable and gives the training tree (the reference's leaves, a
+transformer's layer weights stacked along L) that the optimizer updates
+in place, and the tensors autograd differentiates.  The step returns a new
 ``TrainState`` whose ``params``, ``opt_state`` and ``ef_state`` are the
 same objects, updated.  Each step's work is in three profiler ranges,
 ``train.forward_backward``, ``train.compression`` and
@@ -20,6 +23,7 @@ import torch
 
 from repro_torch.data.synthetic import fold_seed
 from repro_torch.device import full_fp32
+from repro_torch.models import common as cm
 from repro_torch.models import transformer as TT
 from repro_torch.train import optim as O
 from repro_torch.train.compression import (
@@ -28,7 +32,7 @@ from repro_torch.train.compression import (
 
 
 class TrainState(NamedTuple):
-    params: Any  # a trainable Transformer (its tree is what is saved)
+    params: Any  # a trainable Transformer (its tree is saved) or a tree
     opt_state: Any
     ef_state: Optional[EFState]
     step: torch.Tensor  # int32 (), on the CPU
@@ -53,9 +57,24 @@ def key_seed(rng: torch.Tensor) -> int:
     return (hi << 32) | lo
 
 
-def init_state(seed: int, params: TT.Transformer,
-               tcfg: TrainConfig) -> TrainState:
-    tree = TT.make_trainable(params)
+def trainable(params):
+    """Make ``params`` trainable: returns (tree, leaves).  ``tree`` is
+    the training tree the optimizer updates in place; ``leaves`` holds,
+    per reference leaf in its flatten order, (stacked, tensors): the
+    tensors autograd differentiates and whether their grads stack along
+    a new leading axis into the leaf (a transformer's per-layer weights)
+    or the leaf is its one tensor (every other leaf, and every leaf of a
+    family with a plain parameter tree)."""
+    if isinstance(params, TT.Transformer):
+        tree = TT.make_trainable(params)
+        return tree, [(path[0] == "layers", ts)
+                      for path, ts in TT.train_leaves(params)]
+    tree = cm.make_trainable(params)
+    return tree, [(False, [t]) for t in O.tree_leaves(tree)]
+
+
+def init_state(seed: int, params, tcfg: TrainConfig) -> TrainState:
+    tree, _ = trainable(params)
     opt_init, _ = O.make_optimizer(tcfg.opt)
     return TrainState(
         params=params,
@@ -81,26 +100,24 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig):
     _, opt_update = O.make_optimizer(tcfg.opt)
     k = tcfg.microbatches
 
-    def grads_of(params, batch):
-        """(loss, per reference leaf the list of its tensors' grads)."""
-        leaves = TT.train_leaves(params)
+    def grads_of(params, leaves, batch):
+        """(loss, per reference leaf (stacked, its tensors' grads))."""
         flat = [t for _, ts in leaves for t in ts]
         with torch.enable_grad():
             loss = loss_fn(params, batch)
             gs = iter(torch.autograd.grad(loss, flat, allow_unused=True,
                                           materialize_grads=True))
-        return loss.detach(), [(path, [next(gs) for _ in ts])
-                               for path, ts in leaves]
+        return loss.detach(), [(st, [next(gs) for _ in ts])
+                               for st, ts in leaves]
 
     def stacked(grads):
-        return [g[0] if path[0] != "layers" else torch.stack(g)
-                for path, g in grads]
+        return [torch.stack(g) if st else g[0] for st, g in grads]
 
     def train_step(state: TrainState, batch):
         full_fp32()
         params = state.params
-        tree = params.tree
-        dev = params.embed.device
+        tree, leaves = trainable(params)
+        dev = O.tree_leaves(tree)[0].device
         batch = {n: v.to(dev) for n, v in batch.items()}
         with torch.profiler.record_function("train.forward_backward"):
             if k > 1:
@@ -110,16 +127,16 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig):
                 loss = torch.zeros((), dtype=torch.float32, device=dev)
                 for m in range(k):
                     mb = {n: v[m::k] for n, v in batch.items()}
-                    loss_m, grads = grads_of(params, mb)
-                    for a, (path, gs) in zip(O.tree_leaves(acc), grads):
-                        parts = [a] if path[0] != "layers" else a
+                    loss_m, grads = grads_of(params, leaves, mb)
+                    for a, (st, gs) in zip(O.tree_leaves(acc), grads):
+                        parts = a if st else [a]
                         for a_l, g in zip(parts, gs):
                             a_l.add_(g.to(tcfg.grad_accum_dtype) / k)
                     del grads
                     loss = loss + loss_m / k
                 grads = acc
             else:
-                loss, grads = grads_of(params, batch)
+                loss, grads = grads_of(params, leaves, batch)
                 it = iter(stacked(grads))
                 grads = O.tree_map(lambda _: next(it), tree)
 

@@ -900,6 +900,33 @@ def test_scan_kernels_at_the_rabitq_shape(cuda, metric):
     assert torch.equal(ts, vs) and torch.equal(ti, vi.to(torch.int32))
 
 
+@pytest.mark.parametrize("m", [16, 512])
+@pytest.mark.parametrize("k", [10, 100])
+def test_scan_kernels_at_the_sasrec_catalog_shape(cuda, k, m):
+    """Kernels 1 and 2 at SASRec's ASH catalog shape (b = 4, D = 50,
+    d = 25, so d_pad = 32 with 7 pad dimensions whose query entries are
+    0; C = 16, dot), for m queries (512: one request of user states):
+    kernel 1 against its plain version, kernel 2 (one scan, one merge)
+    EQUAL to a stable top-k of kernel 1's scores and, on the plain route,
+    to a stable top-k of the plain scores' order."""
+    args = _args(25, 4, 25, 30011, m, 16, "dot", cuda)
+    assert args[1].shape[1] == 32 and not args[1][:, 25:].any()
+    got = TK.ash_score_cuda(*args, b=4, metric="dot")
+    want = TR.ash_score_metric_ref(*args, b=4, metric="dot")
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+    before = dict(TK.launch_counts)
+    ts, ti = TK.ash_score_topk_cuda(*args, b=4, k=k, metric="dot")
+    torch.cuda.synchronize()
+    assert TK.launch_counts["ash_score_topk"] == before["ash_score_topk"] + 1
+    assert TK.launch_counts["ash_topk_merge"] == before["ash_topk_merge"] + 1
+    vs, vi = TR.stable_top_k(got, k)
+    assert torch.equal(ts, vs) and torch.equal(ti, vi.to(torch.int32))
+    ps, _ = TR.stable_top_k(want, k)
+    torch.testing.assert_close(ts, ps, rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+
+
 @pytest.mark.parametrize("S,mask_from", [(77, 0), (1037, 1021), (2063, 5),
                                          (4099, 700), (32768, 31000)])
 @pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])

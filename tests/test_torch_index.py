@@ -262,6 +262,10 @@ def test_port_never_imports_jax_or_reference():
     assert REPO / "src" / "repro_torch" / "configs" / "registry.py" in files
     assert REPO / "src" / "repro_torch" / "configs" / "granite_moe_3b.py" \
         in files
+    for mod in ("models/sasrec", "models/recsys", "models/nequip",
+                "data/graphs", "configs/sasrec_cfg", "configs/dcn_v2",
+                "configs/fm", "configs/autoint", "configs/nequip_cfg"):
+        assert REPO / "src" / "repro_torch" / f"{mod}.py" in files
     for f in files:
         bad = _imports(f) & {"jax", "jaxlib", "repro"}
         assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"

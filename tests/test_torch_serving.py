@@ -41,6 +41,7 @@ from repro_torch.device import ROW_BLOCK, row_blocked  # noqa: E402
 from repro_torch.index import AshIndex  # noqa: E402
 from repro_torch.index.api import IVFBackend  # noqa: E402
 from repro_torch.serving import ByteLRU, QueryEngine  # noqa: E402
+from repro_torch.models import sasrec as SR  # noqa: E402
 from repro_torch.serving import retrieval  # noqa: E402
 
 METRICS = ("dot", "l2", "cos")
@@ -383,8 +384,17 @@ def test_retrieval_serve_topk(data):
         want = idx.search(torch.from_numpy(Qm[:5]), k=7,
                           use_kernel=use_kernel)
         assert _equal(got, want)
-    with pytest.raises(NotImplementedError, match="13c"):
-        retrieval.sasrec_retrieve({}, None, idx, None)
+    # SASRec retrieval: the user states' search through the same engine
+    cfg = SR.SASRecConfig(n_items=500, embed_dim=X.shape[1], seq_len=6,
+                          n_neg=4)
+    params = SR.init_params(torch.Generator().manual_seed(2), cfg,
+                            device="cpu")
+    seq = torch.randint(0, 500, (5, 6),
+                        generator=torch.Generator().manual_seed(3))
+    got = retrieval.sasrec_retrieve(params, seq, idx, cfg, k=7)
+    with torch.no_grad():
+        want = idx.search(SR.user_state(params, seq, cfg), k=7)
+    assert _equal(got, want)
     with pytest.raises(ValueError, match="not the index"):
         retrieval.engine_for(idx).attach_durability(
             types.SimpleNamespace(index=None))

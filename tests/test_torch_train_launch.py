@@ -13,7 +13,12 @@
   through the registry and ``reduced_arch`` gives a finite loss and
   moves every parameter leaf; ``reduced_arch`` equals the reference's
   field by field (dtypes by name).
-* The other five ids raise ``KeyError`` naming ROADMAP item 13c.
+* The other five ids (nequip, sasrec, dcn-v2, fm, autoint) resolve in
+  their families; each trains through ``--reduced --device cpu``; its
+  ``reduced_arch`` equals the reference's field by field; nequip and
+  sasrec resume from ``--die-at-step`` with the uninterrupted run's
+  losses EQUAL, and a nequip checkpoint restores into the reference's
+  state template.
 """
 import contextlib
 import dataclasses
@@ -164,8 +169,84 @@ def test_reduced_smoke_train_step(arch_id):
 
 @pytest.mark.parametrize("arch_id", LATER_IDS)
 def test_later_families_name_item_13c(arch_id):
-    assert arch_id in JR.ARCHS
-    with pytest.raises(KeyError, match="13c"):
-        TR.get(arch_id)
+    """The item-13c ids resolve in the reference's families (the
+    registry holds all ten reference ids)."""
+    assert sorted(TR.ARCHS) == sorted(JR.ARCHS)
+    arch = TR.get(arch_id)
+    assert arch.family == JR.get(arch_id).family
+    assert arch.model.__name__ == f"repro_torch.models.{arch.family}"
     with pytest.raises(KeyError, match="unknown"):
         TR.get("no-such-arch")
+
+
+def _fields_equal(got, want):
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if f.name in ("dtype", "param_dtype"):
+            assert str(a).split(".")[-1] == jnp.dtype(b).name
+        else:
+            assert a == b, f.name
+
+
+@pytest.mark.parametrize("arch_id", LATER_IDS)
+def test_reduced_later_arch_matches_reference(arch_id):
+    got, want = TL.reduced_arch(TR.get(arch_id)), JL.reduced_arch(
+        JR.get(arch_id))
+    _fields_equal(got.cfg, want.cfg)
+    _fields_equal(TR.get(arch_id).cfg, JR.get(arch_id).cfg)
+    assert (got.train_cfg.opt.name, got.train_cfg.opt.lr) == \
+        (want.train_cfg.opt.name, want.train_cfg.opt.lr) == ("adamw", 1e-3)
+    assert (got.train_cfg.opt.warmup_steps, got.train_cfg.opt.total_steps,
+            got.train_cfg.microbatches) == (
+        want.train_cfg.opt.warmup_steps, want.train_cfg.opt.total_steps, 1)
+
+
+def _later_args(arch_id, steps=6):
+    return ["--arch", arch_id, "--reduced", "--steps", str(steps),
+            "--batch", "16", "--ckpt-every", "2", "--log-every", "1",
+            "--device", "cpu"]
+
+
+@pytest.mark.parametrize("arch_id", LATER_IDS)
+def test_reduced_later_arch_trains_via_launcher(arch_id, tmp_path):
+    rc, out = _run(_later_args(arch_id, steps=4))
+    assert rc == 0 and out.rstrip().endswith("[done]")
+    losses = _losses(out)
+    assert sorted(losses) == [1, 2, 3, 4]
+    assert all(np.isfinite(float(v)) for v in losses.values())
+
+
+@pytest.mark.parametrize("arch_id", ["nequip", "sasrec"])
+def test_later_arch_restart_repeats_losses(arch_id, tmp_path):
+    args = _later_args(arch_id)
+    rc, out = _run(args + ["--ckpt-dir", str(tmp_path / "a"),
+                           "--die-at-step", "3"])
+    assert rc == 42 and "[failure-sim] dying at step 3" in out
+    rc, resumed = _run(args + ["--ckpt-dir", str(tmp_path / "a")])
+    assert rc == 0 and "[restore] resumed from step 2" in resumed
+    rc, whole = _run(args + ["--ckpt-dir", str(tmp_path / "b")])
+    assert rc == 0
+    got, want = _losses(resumed), _losses(whole)
+    assert sorted(got) == [3, 4, 5, 6]
+    assert all(got[s] == want[s] for s in got)
+    assert {s: _losses(out)[s] for s in (1, 2, 3)} == \
+        {s: want[s] for s in (1, 2, 3)}
+
+
+def test_nequip_checkpoint_restores_in_reference(tmp_path):
+    """A nequip checkpoint of the launcher (the reference's leaf names:
+    ``layers/[i]/['self']/[l]``...) restores into the reference
+    launcher's state template."""
+    rc, _ = _run(_later_args("nequip", steps=2)
+                 + ["--ckpt-dir", str(tmp_path)])
+    assert rc == 0
+    arch = JL.reduced_arch(JR.get("nequip"))
+    from repro.models import nequip as JN
+
+    key = jax.random.PRNGKey(0)
+    template = JTR.init_state(key, JN.init_params(key, arch.cfg),
+                              arch.train_cfg)
+    state, extra = JCK.CheckpointManager(str(tmp_path)).restore(template)
+    assert extra == {"seed": 0} and int(state.step) == 2
+    assert all(np.isfinite(np.asarray(x)).all()
+               for x in jax.tree_util.tree_leaves(state.params))
