@@ -249,7 +249,8 @@ for exact rerank.  Phases, one line each:
      resumed from step 4``, step 5's line equal to the first run's) and
      returns 0;
   21. the recommender and interatomic families (run right after phase
-     20, on the memory it frees; the reference's cells, hardcoded):
+     20, on the memory it frees; the cells' numbers read from the
+     port's ``configs.base``):
      21a SASRec at full width (1,048,576 items, e = 50, 2 blocks, seq
      50, 128 negatives), 4 AdamW steps at 65,536 sequences of the
      ``SequenceStream`` (step p50/p99 by CUDA events, sequences/s, peak
@@ -278,7 +279,21 @@ for exact rerank.  Phases, one line each:
      launcher's ``main`` for nequip on the card, in process: ``--die-at-
      step 3`` exits 42, the rerun resumes from step 2 with step 3's
      line EQUAL. 21a-c profile one more train step of each model
-     (device time by group, the optimizer's range, the idle share).
+     (device time by group, the optimizer's range, the idle share);
+  22. the launch tools' plan against the card.  Two CPU children start
+     right after the build and run beside phases 19-12 (no card
+     visible to them, niced): ``python -m repro_torch.launch.dryrun
+     --multi-pod single`` over every non-skipped cell of the ten archs
+     on the 256-card H100 mesh (no failed row; its seconds printed),
+     and the same tool on a 1 x 1 mesh for the cells phases 20a, 9-11
+     and 21a-c run, at their shapes.  No model runs again: each plan is
+     set beside what its phase measured (``plan_vs_card`` lines, with
+     the card's name and power limit): argument bytes against
+     ``memory_allocated()`` after the state was built (within 1 %),
+     the traced peak against ``max_memory_allocated()`` (a ratio), and
+     the counted FLOPs a step over the measured step time as a share
+     of the dense bf16 peak (a hardware-FLOP share, beside 20a's
+     model-FLOP share).
 
 The kernels line's launches add those of phases 14-15's own searches,
 phase 16's engine traffic and recovered-index searches, the launches
@@ -990,12 +1005,16 @@ def lm_phases(results, dev):
     cfg = LC.ashkv_config()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     params, t_init = sync_time(TT.init_params, torch.Generator(
         device=dev).manual_seed(0), cfg, device=dev)
     cache, t_cache = sync_time(TT.init_cache, cfg, LM_BATCH, LM_MAX_LEN,
                                device=dev)
     results["lm_build"] = lm_build_row(params, cfg, cache, LM_BATCH, t_init,
                                        t_cache)
+    # phase 22's: the weights and the cache as the allocator holds them
+    results["lm_build"]["state_allocated_b"] = (
+        torch.cuda.memory_allocated() - base)
     log("lm_build", **results["lm_build"])
 
     # -- 10. kernel 7 against its plain version --------------------------
@@ -3151,9 +3170,11 @@ def train_full(arch_id, batch, steps, dev, det_steps=0):
     t_run = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     params, t_init = sync_time(TT.init_params, torch.Generator(
         device=dev).manual_seed(20), cfg, device=dev)
     state = TTR.init_state(20, params, tcfg)
+    state_b = torch.cuda.memory_allocated() - base  # phase 22's
     before = _leaf_samples(params.tree)
     step_fn = TTR.make_train_step(functools.partial(TT.loss_fn, cfg=cfg),
                                   tcfg)
@@ -3224,7 +3245,7 @@ def train_full(arch_id, batch, steps, dev, det_steps=0):
         params=n_params, active_params=n_active, matmul_params=n_matmul,
         init_s=t_init,
         steps=steps, losses=losses, step1_aux=aux0, grad_norms=gnorms,
-        step_ms=ms,
+        step_ms=ms, state_allocated_b=state_b,
         step_p50_ms=p50, step_p99_ms=pct(timed, 99),
         tokens_per_s=tokens / (p50 / 1e3),
         model_flop_share=6 * n_matmul * tokens / (p50 / 1e3)
@@ -3478,22 +3499,37 @@ def train_phase(results, dev):
 
 
 # -- the recommender and interatomic families (phase 21) -------------------
-# The cells' numbers are the reference's, hardcoded here (the port has no
-# configs/base.py until ROADMAP item 15): recsys_cells and gnn_cells'
-# molecule cell (repro/configs/base.py:531-565) and sasrec's extra
-# retrieval_cand_ash cell (repro/configs/sasrec_cfg.py:8-24: b = 4,
-# d = e / 2).  Their products are cuBLAS and autograd, as the
+# The cells' numbers are read from the port's configs.base: recsys_cells,
+# gnn_cells' molecule cell and sasrec's extra retrieval_cand_ash cell
+# (b = 4, d = e / 2).  Their products are cuBLAS and autograd, as the
 # reference's jnp; SASRec's catalog search runs kernel 2.
-FAM_TRAIN_BATCH = 65_536  # train_batch
-FAM_SERVE_BATCH = 512  # serve_p99: a request's rows
-FAM_N_CAND = 1_000_000  # retrieval_cand: one user against 10^6 items
+
+
+def _family_cells():
+    """(recsys_cells, the molecule cell, sasrec's retrieval_cand_ash)."""
+    if str(ROOT / "src") not in sys.path:
+        sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import base, registry
+
+    return (base.recsys_cells(), base.gnn_cells()["molecule"],
+            registry.get("sasrec").cell("retrieval_cand_ash"))
+
+
+_RECSYS_CELLS, _MOL_CELL, _SAS_CELL = _family_cells()
+FAM_TRAIN_BATCH = _RECSYS_CELLS["train_batch"].shape["batch"]
+FAM_SERVE_BATCH = _RECSYS_CELLS["serve_p99"].shape["batch"]  # a request
+FAM_N_CAND = _RECSYS_CELLS["retrieval_cand"].shape["n_candidates"]
+SAS_BITS = _SAS_CELL.shape["ash_bits"]  # b
+SAS_REDUCE = _SAS_CELL.shape["ash_reduce"]  # d = embed_dim // SAS_REDUCE
 FAM_CAND_CHUNK = 1 << 18  # candidates a forward (AutoInt's temporaries)
 FAM_STEPS = 4  # train steps a model; the first is warm-up
 FAM_SERVE_TIMED = 50  # serve_p99 forwards a recsys model
 SAS_KS = (10, 100)  # retrieval_cand_ash requests at k = 10 and k = 100
 SAS_REQUESTS = 30  # timed requests a k
 SAS_LANDMARKS = 16
-MOL_GRAPHS, MOL_NODES, MOL_EDGES = 128, 30, 64  # the molecule cell
+MOL_GRAPHS = _MOL_CELL.shape["n_graphs"]  # the molecule cell's graphs
+MOL_NODES = _MOL_CELL.shape["n_nodes"] // MOL_GRAPHS  # atoms a graph
+MOL_EDGES = _MOL_CELL.shape["n_edges"] // MOL_GRAPHS  # edges a graph
 FAM_SMALL_STEPS = 3  # 21d: reduced archs, card against CPU
 FAM_SMALL_BATCH = 64
 FAM_IDS = ("sasrec", "dcn-v2", "fm", "autoint", "nequip")
@@ -3554,7 +3590,7 @@ def sasrec_phase(dev):
     2's scans and merges in the requests, the phase's row)."""
     import torch
 
-    from repro_torch.configs import registry, sasrec_cfg
+    from repro_torch.configs import registry
     from repro_torch.data.synthetic import IteratorState, SequenceStream
     from repro_torch.index import exact_topk, recall_at
     from repro_torch.kernels import ash_score as TK
@@ -3566,9 +3602,11 @@ def sasrec_phase(dev):
     cfg = arch.cfg
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     params, t_init = sync_time(SR.init_params, torch.Generator(
         device=dev).manual_seed(21), cfg, device=dev)
     state = TTR.init_state(21, params, arch.train_cfg)
+    state_b = torch.cuda.memory_allocated() - base  # phase 22's
     step = TTR.make_train_step(arch.loss_fn(), arch.train_cfg)
     stream = SequenceStream(IteratorState(seed=21), FAM_TRAIN_BATCH,
                             cfg.seq_len, cfg.n_items, cfg.n_neg)
@@ -3578,6 +3616,7 @@ def sasrec_phase(dev):
     check(abs(losses[0] - math.log(1 + cfg.n_neg)) < 0.5,
           f"21a: step 1 loss {losses[0]} vs ln 129")
     train = _train_row("sasrec", params, ms, losses, FAM_TRAIN_BATCH)
+    train["state_allocated_b"] = state_b
     train["sequences_per_s"] = train.pop("rows_per_s")
     train["init_s"] = t_init
     train["profile"] = _profiled_step(step, state, stream.next())
@@ -3586,7 +3625,7 @@ def sasrec_phase(dev):
     items = params["item_emb"].detach()
     index, t_build = sync_time(
         RET.build_index, torch.Generator().manual_seed(21), items,
-        bits=sasrec_cfg.ASH_BITS, reduce=sasrec_cfg.ASH_REDUCE,
+        bits=SAS_BITS, reduce=SAS_REDUCE,
         n_landmarks=SAS_LANDMARKS, learned=True, metric="dot", device=dev)
     users = SequenceStream(IteratorState(seed=2101), FAM_SERVE_BATCH,
                            cfg.seq_len, cfg.n_items, cfg.n_neg)
@@ -3673,9 +3712,11 @@ def recsys_phase(dev):
         cfg = arch.cfg
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         params, t_init = sync_time(RS.init_params, torch.Generator(
             device=dev).manual_seed(22), cfg, device=dev)
         state = TTR.init_state(22, params, arch.train_cfg)
+        state_b = torch.cuda.memory_allocated() - base  # phase 22's
         step = TTR.make_train_step(arch.loss_fn(), arch.train_cfg)
         stream = ClickStream(IteratorState(seed=22), FAM_TRAIN_BATCH,
                              cfg.n_dense, cfg.n_sparse, cfg.vocab_per_field)
@@ -3683,6 +3724,8 @@ def recsys_phase(dev):
             step, state, [stream.next() for _ in range(FAM_STEPS)])
         row = _train_row(arch_id, params, ms, losses, FAM_TRAIN_BATCH)
         row["examples_per_s"] = row.pop("rows_per_s")
+        row["state_allocated_b"] = state_b
+        row["train_peak_mem_gb"] = row["peak_mem_gb"]
         row["table_gb"] = params["tables"].numel() * 4 / 1e9
         row["init_s"] = t_init
         row["profile"] = _profiled_step(step, state, stream.next())
@@ -3753,8 +3796,10 @@ def nequip_phase(dev):
     cfg = arch.cfg
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     params = NQ.init_params(torch.Generator(device=dev).manual_seed(25),
                             cfg, device=dev)
+    state_b = torch.cuda.memory_allocated() - base  # phase 22's
     gen = torch.Generator().manual_seed(25)
 
     def batch(seed):
@@ -3790,13 +3835,16 @@ def nequip_phase(dev):
     f_rel = float((f1 - f0 @ R.T).abs().max() / f0.abs().max())
     check(e_rel <= 1e-5, f"21c: energies moved by {e_rel} under E(3)")
     check(f_rel <= 1e-4, f"21c: forces not equivariant ({f_rel})")
+    base = torch.cuda.memory_allocated()
     state = TTR.init_state(25, params, arch.train_cfg)
+    state_b += torch.cuda.memory_allocated() - base  # the moments
     step = TTR.make_train_step(arch.loss_fn(n_graphs=MOL_GRAPHS),
                                arch.train_cfg)
     state, ms, losses = _timed_steps(step, state,
                                      [batch(1 + i) for i in range(FAM_STEPS)])
     row = _train_row("nequip", params, ms, losses, MOL_GRAPHS)
     row["graphs_per_s"] = row.pop("rows_per_s")
+    row["state_allocated_b"] = state_b
     row["profile"] = _profiled_step(step, state, batch(1 + FAM_STEPS))
     row.update(atoms=MOL_GRAPHS * MOL_NODES, edges=MOL_GRAPHS * MOL_EDGES,
                energy_and_forces_ms=dict(p50=pct(sorted(ef[1:]), 50),
@@ -4623,6 +4671,162 @@ def ann_phases(results, dev):
 
 
 
+# -- 22. the dry-run's plan against the card ----------------------------------
+DRYRUN_JOBS = 3  # worker processes of the single-mesh dry-run child
+DRYRUN_SINGLE = ["--multi-pod", "single"]  # its matrix: every cell
+DRYRUN_TIMEOUT = 1000  # s from its start; the children run beside 19-12
+PLAN_TOL = 0.01  # phase 22: a plan's argument bytes vs the card's
+
+
+def plan_cells():
+    """Phase 22's cells, each at the shape a phase runs on the card:
+    (results key, arch, cell, shape overrides, the plan arguments that
+    phase holds on the card)."""
+    return [
+        ("train_20a", "llama3.2-3b", "train_4k",
+         {"global_batch": TRAIN_RUNS[0][1], "seq_len": TRAIN_SEQ}, 1),
+        ("lm_build", "llama3.2-3b", "decode_32k_ashkv",
+         {"global_batch": LM_BATCH, "seq_len": LM_MAX_LEN}, 2),
+        ("families_21a", "sasrec", "train_batch",
+         {"batch": FAM_TRAIN_BATCH}, 1),
+        *[("families_21b", a, "train_batch", {"batch": FAM_TRAIN_BATCH}, 1)
+          for a in ("dcn-v2", "fm", "autoint")],
+        ("families_21c", "nequip", "molecule", {}, 1),
+    ]
+
+
+def start_dryruns():
+    """Start phase 22's two children (CPU only: no card visible, niced,
+    one thread each): ``launch.dryrun --multi-pod single`` over every
+    non-skipped cell on the 256-card mesh, and the 1 x 1 plans of
+    :func:`plan_cells`.  Returns {name: (process, rows file, log)}."""
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    plans = [[a, c, sh] for _, a, c, sh, _ in plan_cells()]
+    extra = {"single": DRYRUN_SINGLE + ["--jobs", str(DRYRUN_JOBS)],
+             "plan_1x1": ["--mesh", "1x1", "--cells", json.dumps(plans)]}
+    procs = {}
+    for name, args in extra.items():
+        rows = out / f"dryrun_{name}.jsonl"
+        rows.unlink(missing_ok=True)
+        logf = out / f"dryrun_{name}.log"
+        with open(logf, "w") as f:
+            procs[name] = (subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                 "--json", str(rows)], cwd=ROOT, env=env, stdout=f,
+                stderr=subprocess.STDOUT, start_new_session=True,
+                preexec_fn=lambda: os.nice(10)), rows, logf)
+    return procs
+
+
+def stop_dryruns(procs):
+    """Kill whatever of the children (and their workers) still runs."""
+    import signal
+
+    for p, _, _ in procs.values():
+        if p.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+
+
+def _dryrun_rows(name, proc, rows, logf, t_start):
+    """Wait for a dry-run child: (its rows, its own seconds); it must
+    exit 0 with no failed row."""
+    import re
+
+    try:
+        rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT
+                                   - (time.perf_counter() - t_start)))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"22: dry-run child {name} still running "
+                             f"after {DRYRUN_TIMEOUT} s")
+    text = logf.read_text()
+    done = re.search(r"dry-run done: (\d+) ok, (\d+) failed, ([\d.]+) s",
+                     text)
+    fails = [ln for ln in text.splitlines() if ln.startswith("FAILED")]
+    check(rc == 0 and done and int(done.group(2)) == 0,
+          f"22: dry-run child {name}: rc {rc}, {fails[:3]}")
+    return ([json.loads(ln) for ln in rows.read_text().splitlines()],
+            float(done.group(3)))
+
+
+def plan_phase(results, procs, t_start):
+    """22: the dry-run against the card.  The single-mesh dry-run child
+    must have no failed row over the non-skipped matrix; the 1 x 1 plans
+    of the cells phases 20a, 9-11 and 21a-c ran (no model is run again)
+    are set beside what those phases measured: the plan's argument bytes
+    (exact from the shapes) against ``memory_allocated()`` after the
+    state was built (within PLAN_TOL), its traced peak against
+    ``max_memory_allocated()`` (a ratio, no gate), and its counted FLOPs
+    a step over the measured step time as a share of the card's dense
+    bf16 peak (beside 20a's model-FLOP share)."""
+    t0 = time.perf_counter()
+    card = results["device"]["nvidia_smi"]
+    waited = {}
+    single, single_s = _dryrun_rows("single", *procs["single"], t_start)
+    waited["single"] = time.perf_counter() - t0
+    plans, plans_s = _dryrun_rows("plan_1x1", *procs["plan_1x1"], t_start)
+    waited["plan_1x1"] = time.perf_counter() - t0
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import registry
+
+    want = sum(1 for _ in registry.all_cells(False))
+    check(len(single) == want, f"22: {len(single)} single-mesh rows of "
+          f"{want}")
+    results["dryrun_single"] = dict(rows=single, seconds=single_s)
+    log("dryrun_single", card=card, rows=len(single), failed=0,
+        seconds=single_s, waited_s=waited["single"],
+        fit_80g=sum(r["fits_80g_hbm"] for r in single),
+        bottlenecks={b: sum(r["bottleneck"] == b for r in single)
+                     for b in ("compute", "memory", "collective")})
+    by = {(r["arch"], r["cell"]): r for r in plans}
+    table = []
+    for key, arch, cell, _, n_held in plan_cells():
+        plan = by[(arch, cell)]
+        row = results[key]
+        if key == "families_21a":
+            row = row["train"]
+        elif key == "families_21b":
+            row = row[arch]
+        if key == "lm_build":
+            step_ms = results["decode"]["p50_ms"]
+            peak_gb = results["decode"]["peak_mem_gb"]
+        else:
+            step_ms = row["step_p50_ms"]
+            peak_gb = row.get("train_peak_mem_gb", row["peak_mem_gb"])
+        held = sum(plan["argument_bytes_by_arg"][:n_held])
+        card_b = row["state_allocated_b"]
+        diff = card_b / held - 1
+        entry = dict(
+            arch=arch, cell=cell, measured_in=key,
+            plan_args_b=held, card_allocated_b=card_b, args_diff=diff,
+            plan_other_args_b=sum(plan["argument_bytes_by_arg"][n_held:]),
+            plan_peak_gb=plan["peak_gib_per_dev"] * 2**30 / 1e9,
+            card_peak_gb=peak_gb,
+            peak_ratio=plan["peak_gib_per_dev"] * 2**30 / 1e9 / peak_gb,
+            plan_flops=plan["flops_per_dev"], step_ms=step_ms,
+            hw_flop_share=plan["flops_per_dev"] / (step_ms / 1e3)
+            / PEAK_BF16_FLOPS,
+            plan_t_bound_ms=1e3 * max(plan["t_compute_s"],
+                                      plan["t_memory_s"]),
+            plan_bottleneck=plan["bottleneck"])
+        if key == "train_20a":
+            entry["model_flop_share"] = row["model_flop_share"]
+        table.append(entry)
+        log("plan_vs_card", card=card, **entry)
+        check(abs(diff) <= PLAN_TOL,
+              f"22: {arch}/{cell} plan arguments {held} B vs the card's "
+              f"{card_b} B ({diff:+.4f})")
+    results["plan_vs_card"] = dict(rows=table, plans_seconds=plans_s,
+                                   waited_s=waited,
+                                   seconds=time.perf_counter() - t0)
+    log("plan_phase", card=card, single_seconds=single_s,
+        plans_seconds=plans_s, seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     # phase 20's deterministic steps need cuBLAS's fixed workspaces, set
     # before the first cuBLAS call
@@ -4698,6 +4902,19 @@ def main() -> int:
     }
     log("ptxas", **results["ptxas"])
 
+    # -- 22's children: the dry-run on the CPU, beside phases 19-12 ----------
+    t_dry = time.perf_counter()
+    procs = start_dryruns()
+    try:
+        return _phases(results, dev, smi, kind, procs, t_dry)
+    finally:
+        stop_dryruns(procs)
+
+
+def _phases(results, dev, smi, kind, procs, t_dry) -> int:
+    """Phases 19-22 and the last lines."""
+    import torch
+
     # -- 19. granite-moe-3b decode, first, on the card's empty memory ------
     # batch 128 needs 79.8 GB of the card's 85.0; after the other phases
     # the process keeps ~7 GB that the allocator cannot give back (CUDA
@@ -4725,6 +4942,9 @@ def main() -> int:
     rows[-1]["launches"] += k7_granite
     rows[-1]["granite"] = granite_row
     results["kernels"] = rows
+
+    # -- 22. the dry-run's plan against the card ---------------------------
+    plan_phase(results, procs, t_dry)
 
     check(not torch.backends.cuda.matmul.allow_tf32
           and not torch.backends.cudnn.allow_tf32, "TF32 was enabled")

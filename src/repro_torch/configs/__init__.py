@@ -1,18 +1,20 @@
 """Model configurations of the port (its own copies of ``repro.configs``).
 
-Each LM module holds the reference's ``CFG``, its ``train_cfg`` as
-``TRAIN_CFG`` (the port's ``TrainConfig``/``OptConfig``) and
-``ashkv_config()``, CFG in the ``decode_32k_ashkv`` cell of
-``repro.configs.base.lm_cells`` (:data:`DECODE_32K_ASHKV`): decode at a
-32k context with the ASH-compressed KV cache, b = 4, d_code = d_head.
-``sasrec_cfg``, ``dcn_v2``, ``fm``, ``autoint`` and ``nequip_cfg`` hold
-the other families' ``CFG`` and ``TRAIN_CFG``.  ``registry.get`` finds
-any of the ten by the reference's arch id.
+Each module holds the reference's ``CFG``, its ``train_cfg`` as
+``TRAIN_CFG`` (the port's ``TrainConfig``/``OptConfig``), its shape
+cells as ``CELLS`` (``base``: ``lm_cells``, ``recsys_cells``,
+``gnn_cells``), ``NOTES`` and, where the reference has them,
+``POLICY_OVERRIDES``.  Each LM module also holds ``ashkv_config()``, CFG
+in the ``decode_32k_ashkv`` cell (:data:`DECODE_32K_ASHKV`, that cell's
+shape): decode at a 32k context with the ASH-compressed KV cache,
+b = 4, d_code = d_head.  ``registry.get`` finds any of the ten by the
+reference's arch id.
 """
 import dataclasses
 
-DECODE_32K_ASHKV = {"seq_len": 32768, "global_batch": 128,
-                    "kv_quant_bits": 4, "kv_quant_dim": 0}
+from repro_torch.configs.base import lm_cells
+
+DECODE_32K_ASHKV = lm_cells()["decode_32k_ashkv"].shape
 
 
 def ashkv(cfg):

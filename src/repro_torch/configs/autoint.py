@@ -1,6 +1,7 @@
 """autoint [arXiv:1810.11921]: self-attentive feature interaction, 3
 layers of 2-head attention over 39 field embeddings (the port's copy of
 ``repro.configs.autoint.CFG`` and its ``train_cfg`` as ``TRAIN_CFG``)."""
+from repro_torch.configs.base import recsys_cells
 from repro_torch.models.recsys import RecSysConfig
 from repro_torch.train.optim import OptConfig
 from repro_torch.train.trainer import TrainConfig
@@ -12,3 +13,7 @@ CFG = RecSysConfig(
 )
 
 TRAIN_CFG = TrainConfig(opt=OptConfig(name="adamw", lr=1e-3))
+
+CELLS = recsys_cells()
+
+NOTES = "3-layer 2-head self-attention over 39 field embeddings."

@@ -7,6 +7,7 @@ d_head = 128, G = 1.
 import torch
 
 from repro_torch.configs import DECODE_32K_ASHKV, ashkv  # noqa: F401
+from repro_torch.configs.base import lm_cells
 from repro_torch.models.transformer import TransformerConfig
 from repro_torch.train.optim import OptConfig
 from repro_torch.train.trainer import TrainConfig
@@ -19,6 +20,10 @@ CFG = TransformerConfig(
 )
 
 TRAIN_CFG = TrainConfig(opt=OptConfig(name="adamw", lr=3e-4), microbatches=4)
+
+CELLS = lm_cells(full_attention=True)
+
+NOTES = "llama-arch dense 7B; MHA (kv == heads)."
 
 
 def ashkv_config() -> TransformerConfig:

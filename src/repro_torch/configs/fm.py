@@ -1,6 +1,7 @@
 """fm [Rendle ICDM'10]: factorization machine, O(nk) sum-square trick
 (the port's copy of ``repro.configs.fm.CFG`` and its ``train_cfg`` as
 ``TRAIN_CFG``)."""
+from repro_torch.configs.base import recsys_cells
 from repro_torch.models.recsys import RecSysConfig
 from repro_torch.train.optim import OptConfig
 from repro_torch.train.trainer import TrainConfig
@@ -11,3 +12,7 @@ CFG = RecSysConfig(
 )
 
 TRAIN_CFG = TrainConfig(opt=OptConfig(name="adamw", lr=1e-3))
+
+CELLS = recsys_cells()
+
+NOTES = "pairwise interactions via 0.5((sum v)^2 - sum v^2)."

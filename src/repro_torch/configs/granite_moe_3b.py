@@ -8,6 +8,7 @@ d_head = 64, G = 3 query heads per KV head.
 import torch
 
 from repro_torch.configs import DECODE_32K_ASHKV, ashkv  # noqa: F401
+from repro_torch.configs.base import lm_cells
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import TransformerConfig
 from repro_torch.train.optim import OptConfig
@@ -22,6 +23,20 @@ CFG = TransformerConfig(
 )
 
 TRAIN_CFG = TrainConfig(opt=OptConfig(name="adamw", lr=3e-4), microbatches=4)
+
+CELLS = lm_cells(full_attention=True)
+
+POLICY_OVERRIDES = {
+    # <10B models: replicating FFN/attention weights is cheaper than
+    # gathering activations (the reference's measurement on its TPU mesh)
+    "pin_ffn_hidden": False, "pin_attn_boundary": False,
+}
+
+NOTES = (
+    "40 experts top-8; E=40 not divisible by model=16 so experts "
+    "shard over pod and expert-FFN width over data (see sharding "
+    "rules). vocab 49155 is odd -> embed/lm_head replicated."
+)
 
 
 def ashkv_config() -> TransformerConfig:

@@ -7,6 +7,7 @@ The port's copy of ``repro.configs.kimi_k2_1t.CFG`` (its fields,
 import torch
 
 from repro_torch.configs import DECODE_32K_ASHKV, ashkv  # noqa: F401
+from repro_torch.configs.base import lm_cells
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import TransformerConfig
 from repro_torch.train.optim import OptConfig
@@ -26,6 +27,13 @@ TRAIN_CFG = TrainConfig(
     opt=OptConfig(name="adafactor", lr=1e-4, b1=0.0,
                   moment_dtype=torch.bfloat16),
     microbatches=16, grad_accum_dtype=torch.bfloat16,
+)
+
+CELLS = lm_cells(full_attention=True)
+
+NOTES = (
+    "1T-param MoE: experts sharded E/model x Fe/data x D/pod; "
+    "memory budget discussed in EXPERIMENTS.md §Dry-run."
 )
 
 

@@ -7,6 +7,7 @@ d_head = 128.
 import torch
 
 from repro_torch.configs import DECODE_32K_ASHKV, ashkv  # noqa: F401
+from repro_torch.configs.base import lm_cells
 from repro_torch.models.transformer import TransformerConfig
 from repro_torch.train.optim import OptConfig
 from repro_torch.train.trainer import TrainConfig
@@ -19,6 +20,16 @@ CFG = TransformerConfig(
 )
 
 TRAIN_CFG = TrainConfig(opt=OptConfig(name="adamw", lr=3e-4), microbatches=2)
+
+CELLS = lm_cells(full_attention=True)
+
+POLICY_OVERRIDES = {
+    # <10B models: replicating FFN/attention weights is cheaper than
+    # gathering activations (the reference's measurement on its TPU mesh)
+    "pin_ffn_hidden": False, "pin_attn_boundary": False,
+}
+
+NOTES = "small llama3; d_head=128."
 
 
 def ashkv_config() -> TransformerConfig:

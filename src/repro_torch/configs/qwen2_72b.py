@@ -7,6 +7,7 @@ The port's copy of ``repro.configs.qwen2_72b.CFG`` (its fields,
 import torch
 
 from repro_torch.configs import DECODE_32K_ASHKV, ashkv  # noqa: F401
+from repro_torch.configs.base import lm_cells
 from repro_torch.models.transformer import TransformerConfig
 from repro_torch.train.optim import OptConfig
 from repro_torch.train.trainer import TrainConfig
@@ -22,6 +23,10 @@ TRAIN_CFG = TrainConfig(
     opt=OptConfig(name="adamw", lr=2e-4, moment_dtype=torch.bfloat16),
     microbatches=8, grad_accum_dtype=torch.float32,
 )
+
+CELLS = lm_cells(full_attention=True)
+
+NOTES = "72B dense: FSDP + TP; bf16 Adam moments to fit the TPU's HBM."
 
 
 def ashkv_config() -> TransformerConfig:

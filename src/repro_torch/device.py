@@ -1,6 +1,8 @@
 """Device selection and float32 precision policy shared by the port."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -29,6 +31,23 @@ def full_fp32() -> None:
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def host_scalars():
+    """Compute a host-side scalar on real CPU tensors.
+
+    The train step's counters (``TrainState.step``, the optimizer's
+    step, the RNG words) live on the CPU, and the learning rate, bias
+    corrections and decay are Python floats read from them.  Under a
+    fake-tensor mode (the dry-run's trace, ``launch.analysis``) those
+    reads would fail: inside this context the mode is set aside, so the
+    same code computes the same values on real tensors.  With no fake
+    mode active it changes nothing.  Also a decorator.
+    """
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    with unset_fake_temporarily():
+        yield
 
 
 ROW_BLOCK = 32  # rows per product of :func:`row_blocked`

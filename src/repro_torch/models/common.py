@@ -12,10 +12,22 @@ nested dict/list parameter tree is its own training tree).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
+
+
+def keep(a, kind: str):
+    """The identity sharding hook: every model forward's default
+    ``constrain`` (``launch.sharding.make_constrain`` gives the others)."""
+    return a
+
+
+def only(kind: str, constrain):
+    """``constrain`` applied to activations of one ``kind`` alone."""
+    return lambda a, k: constrain(a, k) if k == kind else a
 
 
 def dense_init(gen: torch.Generator, shape, *, dtype=torch.float32,
@@ -90,6 +102,13 @@ def gqa_attention(
     ``q_chunk`` > 0 processes queries in chunks of that size when it
     divides S (bounds the (Sc, T) logit tile of a long prefill).
     """
+    if is_dtensor(q):
+        if kv_len is not None:
+            raise NotImplementedError("kv_len on sharded operands")
+        return on_local_shards(
+            lambda q, k, v: gqa_attention(q, k, v, causal=causal,
+                                          q_chunk=q_chunk),
+            (q, k, v), head_dims=(2, 2, 2), out_head_dim=2)
     B, S, H, dh = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -124,6 +143,102 @@ def gqa_attention(
 
 
 # ---------------------------------------------------------------------------
+# Sharded operands (DTensors of a dry-run, ``launch.analysis``)
+# ---------------------------------------------------------------------------
+
+
+def is_dtensor(t) -> bool:
+    return hasattr(t, "_local_tensor") and hasattr(t, "placements")
+
+
+def on_local_shards(fn, tensors, *, shared=(), head_dims=None,
+                    out_head_dim=None, n_out: int = 1,
+                    reduce_out: bool = False):
+    """``fn(*tensors)`` for DTensor operands independent along their
+    batch (dim 0) and, with ``head_dims``, head dims, run on each card's
+    shards, as GSPMD partitions an attention: the operands take the
+    first one's batch sharding and, on a mesh axis where its heads are
+    sharded and every operand's head count divides, that head sharding;
+    other axes are replicated.  DTensor's own propagation cannot shard
+    the grouped-head products of an attention (its strided shards), and
+    the backward of a gather builds a replicated tensor of the whole
+    input, so the attention cores and the token losses go through here
+    (``torch.distributed.tensor.experimental.local_map``); the
+    redistributions into this layout are counted like any other.
+    ``n_out`` outputs, each sharded as the batch; with ``reduce_out``
+    each card's output is its part of a sum over the batch (``Partial``
+    on the batch's axes).  ``shared`` operands (tables, weights) follow
+    ``tensors`` as arguments of ``fn``, whole on every card; their
+    gradients are sums over the cards.  Plain tensors among the operands
+    are replicated."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = next(t for t in tensors + tuple(shared)
+                if is_dtensor(t)).device_mesh
+
+    def dt(t):
+        return t if is_dtensor(t) else DTensor.from_local(
+            t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+    tensors = tuple(dt(t) for t in tensors)
+    shared = tuple(dt(t) for t in shared)
+    first = tensors[0]
+    ins = [[] for _ in tensors]
+    out = []
+    for i, p in enumerate(first.placements):
+        n = mesh.size(i)
+        if isinstance(p, Shard) and p.dim == 0:
+            for pl in ins:
+                pl.append(Shard(0))
+            out.append(Partial() if reduce_out else Shard(0))
+        elif (head_dims and isinstance(p, Shard) and p.dim == head_dims[0]
+              and all(t.shape[d] % n == 0
+                      for t, d in zip(tensors, head_dims))):
+            for pl, d in zip(ins, head_dims):
+                pl.append(Shard(d))
+            out.append(Shard(out_head_dim))
+        else:
+            for pl in ins:
+                pl.append(Replicate())
+            out.append(Replicate())
+    def local(*ts):
+        return fn(*(_ContiguousGrad.apply(t) for t in ts))
+
+    grads = ins + [[Partial()] * mesh.ndim for _ in shared]
+    ins += [[Replicate()] * mesh.ndim for _ in shared]
+    return local_map(local, out_placements=out if n_out == 1 else
+                     (out,) * n_out, in_placements=tuple(ins),
+                     in_grad_placements=tuple(grads), device_mesh=mesh,
+                     redistribute_inputs=True)(*tensors, *shared)
+
+
+def per_row(fn, *tensors, shared=(), n_out: int = 1,
+            reduce_out: bool = False):
+    """``fn(*tensors, *shared)`` for operands whose rows (dim 0) are
+    independent: directly on plain tensors, on each card's rows of
+    DTensors (:func:`on_local_shards`)."""
+    if not any(is_dtensor(t) for t in tensors + tuple(shared)):
+        return fn(*tensors, *shared)
+    return on_local_shards(fn, tensors, shared=tuple(shared), n_out=n_out,
+                           reduce_out=reduce_out)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose gradient is made contiguous: a shard's gradient
+    leaves :func:`on_local_shards` in the layout the sharded ops after
+    it view."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+# ---------------------------------------------------------------------------
 # Losses
 # ---------------------------------------------------------------------------
 
@@ -132,14 +247,23 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token CE. logits (..., V); labels (...,) int; with
     ``mask`` the masked mean (at least one in the denominator)."""
-    logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
-    nll = lse - ll
+    if is_dtensor(logits):
+        # per card on its rows, the vocabulary gathered (the gather's
+        # backward would otherwise build the whole logits on every card)
+        nll = on_local_shards(_token_nll, (logits, labels))
+    else:
+        nll = _token_nll(logits, labels)
     if mask is not None:
         mask = mask.to(torch.float32)
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return lse - ll
 
 
 def binary_cross_entropy(logits: torch.Tensor,
@@ -162,9 +286,25 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     ``segment_ids[i]`` of a zero (num_segments, ...) tensor, with
     ``index_add`` (every id must lie in [0, num_segments)); under
     ``torch.use_deterministic_algorithms(True)`` the card sums in a
-    fixed order."""
+    fixed order.  Sharded rows are summed on each card and the cards'
+    sums added."""
+    return per_row(functools.partial(_segment_sum, num_segments=num_segments),
+                   data, segment_ids, reduce_out=True)
+
+
+def _segment_sum(data, segment_ids, num_segments):
     out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
     return out.index_add(0, segment_ids.long(), data)
+
+
+def gather(table: torch.Tensor, ids: torch.Tensor,
+           select: bool = False) -> torch.Tensor:
+    """``table[ids]``, or ``table.index_select(0, ids)`` with ``select``;
+    each card of sharded ``ids`` gathers its own rows from the whole
+    table (replicated for the gather; its gradient the cards' sum)."""
+    fn = (lambda i, t: t.index_select(0, i)) if select else (
+        lambda i, t: t[i])
+    return per_row(fn, ids, shared=(table,))
 
 
 def embedding_bag(

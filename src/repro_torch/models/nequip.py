@@ -37,7 +37,7 @@ import torch
 from torch.nn import functional as Fn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import resolve_device
+from repro_torch.device import host_scalars, resolve_device
 from repro_torch.models import common as cm
 
 make_trainable = cm.make_trainable
@@ -110,7 +110,8 @@ def gaunt_tensor(l1: int, l2: int, l3: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _gaunt_on(l1: int, l2: int, l3: int, device: torch.device):
-    return torch.from_numpy(gaunt_tensor(l1, l2, l3)).to(device)
+    with host_scalars():  # a real constant, also when a trace asks first
+        return torch.from_numpy(gaunt_tensor(l1, l2, l3)).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -206,7 +207,8 @@ def init_params(gen: torch.Generator, cfg: NequIPConfig, *,
 # ---------------------------------------------------------------------------
 
 
-def _messages(cfg, lp, feats, edge_src, edge_dst, sh, radial, n_nodes):
+def _messages(cfg, lp, feats, edge_src, edge_dst, sh, radial, n_nodes,
+              constrain=cm.keep):
     """Edge-wise tensor products + scatter: {l3: (N, C, 2l3+1)} sums."""
     C = cfg.channels
     paths = tp_paths(cfg.l_max)
@@ -216,15 +218,21 @@ def _messages(cfg, lp, feats, edge_src, edge_dst, sh, radial, n_nodes):
            for l in range(cfg.l_max + 1)}
     for pi, (l1, l2, l3) in enumerate(paths):
         Cg = _gaunt_on(l1, l2, l3, radial.device)  # (m1, m2, m3)
-        msg = torch.einsum("eca,eb,abm->ecm", feats[l1][edge_src], sh[l2],
+        src_feat = constrain(cm.gather(feats[l1], edge_src), "edge_feats")
+        msg = torch.einsum("eca,eb,abm->ecm", src_feat, sh[l2],
                            Cg)  # (E, C, 2l3+1)
-        msg = msg * w[:, pi, :, None]
+        msg = constrain(msg * w[:, pi, :, None], "edge_feats")
         out[l3] = out[l3] + cm.segment_sum(msg, edge_dst, n_nodes)
     return out
 
 
-def _interaction(cfg: NequIPConfig, lp, feats, edge_src, edge_dst, sh,
-                 radial, n_nodes: int):
+_RADIAL = ("rad_w1", "rad_b1", "rad_w2")  # the weights _messages reads
+
+
+def _edge_sums(cfg: NequIPConfig, lp, feats, edge_src, edge_dst, sh, radial,
+               n_nodes: int, constrain=cm.keep):
+    """The node sums of the messages over these edges: {l3: (N, C,
+    2l3+1)}, chunk by chunk with ``cfg.edge_chunks``."""
     E = edge_src.shape[0]
     k = cfg.edge_chunks
     msg_fn = _messages
@@ -233,20 +241,49 @@ def _interaction(cfg: NequIPConfig, lp, feats, edge_src, edge_dst, sh,
         # live edge-tensor memory is one chunk whatever the depth
         msg_fn = functools.partial(checkpoint, _messages,
                                    use_reentrant=False)
-    if k > 1 and E % k == 0:
-        # stream edges: accumulate node sums chunk by chunk
-        size = E // k
-        out = {l: feats[0].new_zeros((n_nodes, cfg.channels, 2 * l + 1))
-               for l in range(cfg.l_max + 1)}
-        for c in range(k):
-            part = slice(c * size, (c + 1) * size)
-            got = msg_fn(cfg, lp, feats, edge_src[part], edge_dst[part],
-                         {l: s[part] for l, s in sh.items()}, radial[part],
-                         n_nodes)
-            out = {l: out[l] + got[l] for l in out}
+    if not (k > 1 and E % k == 0):
+        return msg_fn(cfg, lp, feats, edge_src, edge_dst, sh, radial,
+                      n_nodes, constrain)
+
+    # stream edges: accumulate node sums chunk by chunk, the edge
+    # tensors viewed as (k, E/k, ...)
+    def chunked(a):
+        return constrain(a.reshape((k, E // k) + a.shape[1:]), "edge_chunked")
+
+    es, ed, rad = chunked(edge_src), chunked(edge_dst), chunked(radial)
+    shc = {l: chunked(s) for l, s in sh.items()}
+    out = {l: feats[0].new_zeros((n_nodes, cfg.channels, 2 * l + 1))
+           for l in range(cfg.l_max + 1)}
+    for c in range(k):
+        got = msg_fn(cfg, lp, feats, es[c], ed[c],
+                     {l: s[c] for l, s in shc.items()}, rad[c], n_nodes,
+                     constrain)
+        out = {l: out[l] + got[l] for l in out}
+    return out
+
+
+def _interaction(cfg: NequIPConfig, lp, feats, edge_src, edge_dst, sh,
+                 radial, n_nodes: int, constrain=cm.keep):
+    L = cfg.l_max + 1
+    if not cm.is_dtensor(edge_src):
+        out = _edge_sums(cfg, lp, feats, edge_src, edge_dst, sh, radial,
+                         n_nodes, constrain)
     else:
-        out = msg_fn(cfg, lp, feats, edge_src, edge_dst, sh, radial,
-                     n_nodes)
+        # edges sharded over cards (a dry-run's DTensors): each card sums
+        # its own edges' messages (in chunks of its edges) into the
+        # whole node range, from the node features gathered whole, and
+        # the cards' sums add up
+        def local(es, ed, rad, *rest):
+            out = _edge_sums(cfg, dict(zip(_RADIAL, rest[2 * L:])),
+                             dict(enumerate(rest[L:2 * L])), es, ed,
+                             dict(enumerate(rest[:L])), rad, n_nodes)
+            return tuple(out[l] for l in range(L))
+
+        out = dict(enumerate(cm.per_row(
+            local, edge_src, edge_dst, radial, *(sh[l] for l in range(L)),
+            shared=(*(feats[l] for l in range(L)),
+                    *(lp[n] for n in _RADIAL)),
+            n_out=L, reduce_out=True)))
 
     # self-interaction + residual
     new = {l: feats[l] + torch.einsum("ncm,cd->ndm", out[l], lp["self"][l])
@@ -261,7 +298,25 @@ def _interaction(cfg: NequIPConfig, lp, feats, edge_src, edge_dst, sh,
     return act
 
 
-def forward(params, batch: dict, cfg: NequIPConfig) -> torch.Tensor:
+def _edge_geometry(cfg: NequIPConfig, src, dst, *rest):
+    """(radial basis under the cutoff envelope (E, n_rbf), then Y_l(r_hat)
+    (E, 2l+1) for l = 0..l_max) of edges src -> dst; ``rest`` is
+    (edge_mask, positions) or (positions,)."""
+    *emask, pos = rest
+    rel = cm.gather(pos, dst) - cm.gather(pos, src)  # (E, 3)
+    # grad-safe norm (zero-length padding/self edges must not NaN forces)
+    r2 = (rel * rel).sum(-1)
+    r = torch.sqrt(torch.clamp(r2, min=1e-12))
+    rhat = rel / torch.clamp(r, min=1e-6)[:, None]
+    env = poly_cutoff(r, cfg.cutoff)
+    if emask:
+        env = env * emask[0].to(env.dtype)
+    radial = bessel_basis(r, cfg.n_rbf, cfg.cutoff) * env[:, None]
+    return (radial, *(sph_harm(l, rhat) for l in range(cfg.l_max + 1)))
+
+
+def forward(params, batch: dict, cfg: NequIPConfig,
+            constrain=cm.keep) -> torch.Tensor:
     """batch: positions (N,3), node_feats (N,F) or species (N,),
     edge_src/edge_dst (E,), optional edge_mask (E,), node_mask (N,),
     graph_ids (N,) with a Python int ``n_graphs`` for batched small
@@ -273,27 +328,25 @@ def forward(params, batch: dict, cfg: NequIPConfig) -> torch.Tensor:
     emask = batch.get("edge_mask")
     nmask = batch.get("node_mask")
 
-    rel = pos[dst] - pos[src]  # (E, 3)
-    # grad-safe norm (zero-length padding/self edges must not NaN forces)
-    r2 = (rel * rel).sum(-1)
-    r = torch.sqrt(torch.clamp(r2, min=1e-12))
-    rhat = rel / torch.clamp(r, min=1e-6)[:, None]
-    env = poly_cutoff(r, cfg.cutoff)
-    if emask is not None:
-        env = env * emask.to(env.dtype)
-    radial = bessel_basis(r, cfg.n_rbf, cfg.cutoff) * env[:, None]
-    sh = {l: sph_harm(l, rhat) for l in range(cfg.l_max + 1)}
+    # edge geometry; edges sharded over cards (a dry-run's DTensors) are
+    # measured on their own cards from the positions gathered whole
+    edges = (src, dst) if emask is None else (src, dst, emask)
+    radial, *sh = cm.per_row(functools.partial(_edge_geometry, cfg),
+                             *edges, shared=(pos,), n_out=cfg.l_max + 2)
+    sh = dict(enumerate(sh))
 
     if "node_feats" in batch:
         x0 = batch["node_feats"].to(torch.float32) @ params["embed"]
     else:
-        x0 = params["embed"][batch["species"].long()]
+        x0 = cm.gather(params["embed"], batch["species"].long())
     feats = {0: x0[..., None]}
     for l in range(1, cfg.l_max + 1):
         feats[l] = x0.new_zeros((n_nodes, cfg.channels, 2 * l + 1))
 
     for lp in params["layers"]:
-        feats = _interaction(cfg, lp, feats, src, dst, sh, radial, n_nodes)
+        feats = _interaction(cfg, lp, feats, src, dst, sh, radial, n_nodes,
+                             constrain)
+        feats = {l: constrain(f, "node_feats") for l, f in feats.items()}
 
     scalars = feats[0][..., 0]  # (N, C)
     atom_e = (Fn.silu(scalars @ params["out_w1"]) @ params["out_w2"])[..., 0]
@@ -305,12 +358,13 @@ def forward(params, batch: dict, cfg: NequIPConfig) -> torch.Tensor:
     return cm.segment_sum(atom_e, gid, int(batch.get("n_graphs", 1)))
 
 
-def _energies_and_grad(params, batch, cfg, create_graph: bool):
+def _energies_and_grad(params, batch, cfg, create_graph: bool,
+                       constrain=cm.keep):
     """(per-graph energies, dE_total/dx) with autograd on a leaf copy
     of the positions."""
     pos = batch["positions"].detach().to(torch.float32).requires_grad_(True)
     with torch.enable_grad():
-        e = forward(params, dict(batch, positions=pos), cfg)
+        e = forward(params, dict(batch, positions=pos), cfg, constrain)
         (grad,) = torch.autograd.grad(e.sum(), pos, create_graph=create_graph)
     return e, grad
 
@@ -321,15 +375,17 @@ def energy_and_forces(params, batch, cfg: NequIPConfig):
     return e.sum().detach(), -grad
 
 
-def node_output(params, batch, cfg: NequIPConfig) -> torch.Tensor:
+def node_output(params, batch, cfg: NequIPConfig,
+                constrain=cm.keep) -> torch.Tensor:
     """Per-node scalar prediction (node-property cells): (N,), the trunk
     read out per atom without graph pooling."""
     n = batch["positions"].shape[0]
     return forward(params, dict(batch, graph_ids=torch.arange(
-        n, device=batch["positions"].device), n_graphs=n), cfg)
+        n, device=batch["positions"].device), n_graphs=n), cfg, constrain)
 
 
-def loss_fn(params, batch, cfg: NequIPConfig, n_graphs=None) -> torch.Tensor:
+def loss_fn(params, batch, cfg: NequIPConfig, n_graphs=None,
+            constrain=cm.keep) -> torch.Tensor:
     """Two regimes (``n_graphs``, a Python int, replaces the batch's
     static graph count when given, as the reference's launcher closes
     over it):
@@ -343,13 +399,15 @@ def loss_fn(params, batch, cfg: NequIPConfig, n_graphs=None) -> torch.Tensor:
     if n_graphs is not None:
         batch = dict(batch, n_graphs=n_graphs)
     if "node_targets" in batch:
-        err = (node_output(params, batch, cfg) - batch["node_targets"]) ** 2
+        err = (node_output(params, batch, cfg, constrain)
+               - batch["node_targets"]) ** 2
         mask = batch.get("node_mask")
         if mask is not None:
             mask = mask.to(err.dtype)
             return (err * mask).sum() / torch.clamp(mask.sum(), min=1.0)
         return err.mean()
-    e, neg_f = _energies_and_grad(params, batch, cfg, create_graph=True)
+    e, neg_f = _energies_and_grad(params, batch, cfg, create_graph=True,
+                                  constrain=constrain)
     loss_e = ((e - batch["energy"]) ** 2).mean()
     f = -neg_f
     tgt = batch["forces"]

@@ -16,6 +16,7 @@ Parameters are the reference's tree: a nested dict (``mlp`` and
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
@@ -129,7 +130,7 @@ def lookup(params, sparse_ids: torch.Tensor,
            cfg: RecSysConfig) -> torch.Tensor:
     """(B, n_sparse) int -> (B, n_sparse, embed_dim): one gather from
     the folded table."""
-    rows = params["tables"].index_select(0, _folded(sparse_ids, cfg))
+    rows = cm.gather(params["tables"], _folded(sparse_ids, cfg), select=True)
     return rows.reshape(sparse_ids.shape[0], cfg.n_sparse, cfg.embed_dim)
 
 
@@ -148,8 +149,8 @@ def _fm_forward(params, batch, cfg: RecSysConfig):
     s = emb.sum(1)
     s2 = (emb * emb).sum(1)
     pair = 0.5 * (s * s - s2).sum(-1)  # (B,)
-    lin = params["linear_sparse"].index_select(
-        0, _folded(batch["sparse"], cfg)).reshape(
+    lin = cm.gather(params["linear_sparse"], _folded(batch["sparse"], cfg),
+                    select=True).reshape(
         batch["sparse"].shape[0], cfg.n_sparse).sum(1)
     if cfg.n_dense:
         lin = lin + (batch["dense"] @ params["linear_dense"])[:, 0]
@@ -175,34 +176,44 @@ def _dcn_forward(params, batch, cfg: RecSysConfig):
     return (both @ params["head"])[:, 0]
 
 
+def _autoint_layer(x, wq, wk, wv, wres, H: int, da: int):
+    B, F = x.shape[0], x.shape[1]
+    q = (x @ wq).reshape(B, F, H, da)
+    k = (x @ wk).reshape(B, F, H, da)
+    v = (x @ wv).reshape(B, F, H, da)
+    logits = torch.einsum("bfhd,bghd->bhfg", q, k) / math.sqrt(da)
+    p = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bhfg,bghd->bfhd", p, v).reshape(B, F, H * da)
+    return torch.relu(o + x @ wres)
+
+
 def _autoint_forward(params, batch, cfg: RecSysConfig):
     x = lookup(params, batch["sparse"], cfg)  # (B, F, e)
-    B, F = x.shape[0], x.shape[1]
-    H, da = cfg.n_attn_heads, cfg.d_attn
+    layer = functools.partial(_autoint_layer, H=cfg.n_attn_heads,
+                              da=cfg.d_attn)
     for lp in params["attn"]:
-        q = (x @ lp["wq"]).reshape(B, F, H, da)
-        k = (x @ lp["wk"]).reshape(B, F, H, da)
-        v = (x @ lp["wv"]).reshape(B, F, H, da)
-        logits = torch.einsum("bfhd,bghd->bhfg", q, k) / math.sqrt(da)
-        p = torch.softmax(logits, dim=-1)
-        o = torch.einsum("bhfg,bghd->bfhd", p, v).reshape(B, F, H * da)
-        x = torch.relu(o + x @ lp["wres"])
-    return (x.reshape(B, -1) @ params["head"])[:, 0]
+        # rows are independent: sharded rows attend on their own cards
+        x = cm.per_row(layer, x, shared=(lp["wq"], lp["wk"], lp["wv"],
+                                         lp["wres"]))
+    return (x.reshape(x.shape[0], -1) @ params["head"])[:, 0]
 
 
 _FORWARDS = {"fm": _fm_forward, "dcn_v2": _dcn_forward,
              "autoint": _autoint_forward}
 
 
-def forward(params, batch, cfg: RecSysConfig) -> torch.Tensor:
-    """CTR logit (B,)."""
+def forward(params, batch, cfg: RecSysConfig,
+            constrain=cm.keep) -> torch.Tensor:
+    """CTR logit (B,).  ``constrain`` is the common sharding hook of the
+    model forwards; as in the reference, this family calls it nowhere."""
     if cfg.kind not in _FORWARDS:
         raise ValueError(cfg.kind)
     return _FORWARDS[cfg.kind](params, batch, cfg)
 
 
-def loss_fn(params, batch, cfg: RecSysConfig) -> torch.Tensor:
-    return cm.binary_cross_entropy(forward(params, batch, cfg),
+def loss_fn(params, batch, cfg: RecSysConfig,
+            constrain=cm.keep) -> torch.Tensor:
+    return cm.binary_cross_entropy(forward(params, batch, cfg, constrain),
                                    batch["labels"])
 
 
@@ -214,10 +225,11 @@ def retrieval_score(params, user_batch: dict, cand_ids: torch.Tensor,
     broadcast.  Returns (n_candidates,) logits.
     """
     n = cand_ids.shape[0]
-    sparse = user_batch["sparse"][0].long()[None, :].expand(
-        n, cfg.n_sparse).clone()
-    sparse[:, 0] = cand_ids
-    batch = {"sparse": sparse}
+    # the candidates' column beside the user's others, broadcast: rows
+    # follow the candidates (sharded with them on a mesh)
+    user = user_batch["sparse"][0].long()[None, 1:].expand(
+        n, cfg.n_sparse - 1)
+    batch = {"sparse": torch.cat([cand_ids.long()[:, None], user], dim=1)}
     if cfg.n_dense:
         batch["dense"] = user_batch["dense"][0][None, :].expand(
             n, cfg.n_dense)

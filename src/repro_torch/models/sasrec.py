@@ -82,7 +82,7 @@ def encode_sequence(params, seq: torch.Tensor,
     B, S = seq.shape
     e = cfg.embed_dim
     seq = seq.long()
-    x = params["item_emb"][seq] * math.sqrt(e)
+    x = cm.gather(params["item_emb"], seq) * math.sqrt(e)
     x = x + params["pos_emb"][None, :S]
     pad_mask = (seq > 0)[:, :, None]
     x = x * pad_mask.to(x.dtype)
@@ -108,15 +108,19 @@ def encode_sequence(params, seq: torch.Tensor,
     return cm.layer_norm(x, params["final_ln_s"], params["final_ln_b"])
 
 
-def loss_fn(params, batch, cfg: SASRecConfig) -> torch.Tensor:
-    """Sampled-softmax next-item loss.
+def loss_fn(params, batch, cfg: SASRecConfig,
+            constrain=cm.keep) -> torch.Tensor:
+    """Sampled-softmax next-item loss (``constrain``, the common
+    sharding hook, is unused here as in the reference).
 
     batch: seq (B, S), labels (B, S) next item per position (0 = pad),
     negatives (n_neg,) shared sampled item ids.
     """
     h = encode_sequence(params, batch["seq"], cfg).to(torch.float32)
-    pos_emb = params["item_emb"][batch["labels"].long()]  # (B, S, e)
-    neg_emb = params["item_emb"][batch["negatives"].long()]  # (n_neg, e)
+    pos_emb = cm.gather(params["item_emb"],
+                        batch["labels"].long())  # (B, S, e)
+    neg_emb = cm.gather(params["item_emb"],
+                        batch["negatives"].long())  # (n_neg, e)
     pos_logit = (h * pos_emb.to(torch.float32)).sum(-1)  # (B, S)
     neg_logit = torch.einsum("bse,ne->bsn", h,
                              neg_emb.to(torch.float32))  # (B, S, n_neg)
@@ -133,13 +137,14 @@ def user_state(params, seq: torch.Tensor,
     h = encode_sequence(params, seq, cfg)
     lengths = (seq > 0).sum(-1)
     idx = torch.clamp(lengths - 1, min=0)
-    return h[torch.arange(h.shape[0], device=h.device), idx]
+    return cm.per_row(
+        lambda h, i: h[torch.arange(h.shape[0], device=h.device), i], h, idx)
 
 
 def retrieval_score(params, seq: torch.Tensor, cand_ids: torch.Tensor,
                     cfg: SASRecConfig) -> torch.Tensor:
     """Exact MIPS scores of each user state vs candidate items: (B, n)."""
     u = user_state(params, seq, cfg)  # (B, e)
-    cand = params["item_emb"][cand_ids.long()]  # (n, e)
+    cand = cm.gather(params["item_emb"], cand_ids.long())  # (n, e)
     return u.to(torch.float32) @ cand.to(torch.float32).T
 

@@ -33,6 +33,7 @@ optimizers and checkpoints work on.  Entry points run on
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -41,7 +42,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.core import quantization as Q
-from repro_torch.device import full_fp32, resolve_device
+from repro_torch.device import full_fp32, host_scalars, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import common as cm
 from repro_torch.models.moe import MoEConfig, MoEParams, init_moe, moe_block
@@ -199,19 +200,23 @@ def _qkv(cfg: TransformerConfig, lp: Layer, h: torch.Tensor):
     return q, k, v
 
 
-def _ffn(cfg: TransformerConfig, lp: Layer, x: torch.Tensor):
+def _ffn(cfg: TransformerConfig, lp: Layer, x: torch.Tensor,
+         constrain=cm.keep):
     """x + FFN(norm(x)) and the layer's router aux loss (zero when
     dense); an MoE FFN routes the flattened (tokens, D) rows."""
     h = cm.rms_norm(x, lp.ffn_norm, cfg.norm_eps)
     if cfg.moe:
-        out, aux = moe_block(lp.moe, h.reshape(-1, h.shape[-1]), cfg.moe)
-        return x + out.reshape(x.shape), aux
-    ffn = cm.swiglu(h @ lp.w_gate, h @ lp.w_up) @ lp.w_down
-    return x + ffn, torch.zeros((), device=x.device)
+        out, aux = moe_block(lp.moe, h.reshape(-1, h.shape[-1]), cfg.moe,
+                             constrain=constrain)
+        return x + constrain(out.reshape(x.shape), "resid"), aux
+    gate = constrain(h @ lp.w_gate, "ffn_hidden")
+    up = constrain(h @ lp.w_up, "ffn_hidden")
+    ffn = cm.swiglu(gate, up) @ lp.w_down
+    return x + constrain(ffn, "resid"), torch.zeros((), device=x.device)
 
 
 def _layer(cfg: TransformerConfig, lp: Layer, x: torch.Tensor,
-           positions: torch.Tensor) -> torch.Tensor:
+           positions: torch.Tensor, constrain=cm.keep) -> torch.Tensor:
     B, S, _ = x.shape
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = cm.rms_norm(x, lp.attn_norm, cfg.norm_eps)
@@ -219,10 +224,14 @@ def _layer(cfg: TransformerConfig, lp: Layer, x: torch.Tensor,
     pos = positions.expand(B, S)
     q = cm.apply_rope(q.reshape(B, S, H, dh), pos, cfg.rope_theta)
     k = cm.apply_rope(k.reshape(B, S, KV, dh), pos, cfg.rope_theta)
-    attn = cm.gqa_attention(q, k, v.reshape(B, S, KV, dh), causal=True,
-                            q_chunk=cfg.q_chunk)
-    x = x + attn.reshape(B, S, H * dh) @ lp.wo
-    return _ffn(cfg, lp, x)  # (x, aux)
+    # the attention boundary pinned to its head-sharded layout
+    q = constrain(q, "qkv")
+    k = constrain(k, "kv")
+    v = constrain(v.reshape(B, S, KV, dh), "v")
+    attn = cm.gqa_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk)
+    attn = constrain(attn, "attn_out")
+    x = x + constrain(attn.reshape(B, S, H * dh) @ lp.wo, "resid")
+    return _ffn(cfg, lp, x, constrain)  # (x, aux)
 
 
 def _logits(params: Transformer, cfg: TransformerConfig, x: torch.Tensor):
@@ -231,37 +240,43 @@ def _logits(params: Transformer, cfg: TransformerConfig, x: torch.Tensor):
 
 
 def _forward(params: Transformer, tokens: torch.Tensor,
-             cfg: TransformerConfig) -> tuple[torch.Tensor, torch.Tensor]:
+             cfg: TransformerConfig,
+             constrain=cm.keep) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward body shared by serving and training; with autograd on
     and ``cfg.remat`` each layer runs under a non-reentrant checkpoint."""
     S = tokens.shape[1]
-    x = params.embed[tokens.long()].to(cfg.dtype)
+    x = constrain(params.embed[tokens.long()].to(cfg.dtype), "resid")
     positions = torch.arange(S, device=x.device)
     aux = torch.zeros((), device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in params.layers:
+        lp = constrain(lp, "layer_params")  # each layer gathers its own
         if remat:
             x, a = torch.utils.checkpoint.checkpoint(
-                _layer, cfg, lp, x, positions, use_reentrant=False)
+                _layer, cfg, lp, x, positions, constrain,
+                use_reentrant=False)
         else:
-            x, a = _layer(cfg, lp, x, positions)
+            x, a = _layer(cfg, lp, x, positions, constrain)
         aux = aux + a
-    return _logits(params, cfg, x), aux
+    return constrain(_logits(params, cfg, x), "logits"), aux
 
 
 @torch.no_grad()
 def forward(params: Transformer, tokens: torch.Tensor,
-            cfg: TransformerConfig) -> tuple[torch.Tensor, torch.Tensor]:
+            cfg: TransformerConfig,
+            constrain=cm.keep) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V) fp32, the router aux loss summed over
-    layers (zero for a dense model))."""
-    return _forward(params, tokens, cfg)
+    layers (zero for a dense model)).  ``constrain(a, kind)`` is the
+    sharding hook of ``launch.sharding.make_constrain`` (identity by
+    default), called where the reference calls it."""
+    return _forward(params, tokens, cfg, constrain)
 
 
 def loss_fn(params: Transformer, batch: dict,
-            cfg: TransformerConfig) -> torch.Tensor:
+            cfg: TransformerConfig, constrain=cm.keep) -> torch.Tensor:
     """Next-token CE of ``logits[:, :-1]`` against ``labels[:, 1:]`` plus
     the summed router aux loss, with autograd on (the training loss)."""
-    logits, aux = _forward(params, batch["tokens"], cfg)
+    logits, aux = _forward(params, batch["tokens"], cfg, constrain)
     return cm.softmax_cross_entropy(
         logits[:, :-1], batch["labels"][:, 1:]) + aux
 
@@ -341,10 +356,62 @@ def make_trainable(params: Transformer) -> dict:
     return tree
 
 
+def stacked_tree(params: Transformer) -> dict:
+    """The reference's parameter tree: the training tree when there is
+    one (:func:`make_trainable`), else the same leaves stacked anew,
+    with ``kv_quant`` (``Wk``, ``Wv``) for an ASH-KV config."""
+    tree = params.tree
+    if tree is None:
+        tree = {}
+        for path, tensors in train_leaves(params):
+            node = tree
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = (torch.stack(tensors) if path[0] == "layers"
+                              else tensors[0])
+    if params.kv_Wk is not None:
+        tree = dict(tree, kv_quant={"Wk": params.kv_Wk, "Wv": params.kv_Wv})
+    return tree
+
+
+def map_leaves(params: Transformer, fn) -> dict:
+    """Replace every leaf of :func:`stacked_tree` by ``fn(path, leaf)``
+    (same shape; e.g. a DTensor sharding it), each layer's weights
+    becoming views of the new stacked leaves.  The new training tree
+    (without ``kv_quant``) is kept in ``params.tree`` and returned."""
+    new: dict = {}
+    for path, leaf in _items(stacked_tree(params)):
+        leaf = fn(path, leaf)
+        grad = leaf.requires_grad
+        if path[0] == "kv_quant":
+            setattr(params, "kv_" + path[1], nn.Parameter(leaf, grad))
+            continue
+        if path[0] == "layers":
+            for l, o in enumerate(_owners(params, path)):
+                setattr(o, path[-1], nn.Parameter(leaf[l], grad))
+        else:
+            leaf = nn.Parameter(leaf, grad)
+            setattr(params, path[-1], leaf)
+        node = new
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    params.tree = new
+    return new
+
+
+def _items(tree, path=()):
+    for key in sorted(tree):
+        if isinstance(tree[key], dict):
+            yield from _items(tree[key], path + (key,))
+        else:
+            yield path + (key,), tree[key]
+
+
 def prefill(params: Transformer, tokens: torch.Tensor,
-            cfg: TransformerConfig) -> torch.Tensor:
+            cfg: TransformerConfig, constrain=cm.keep) -> torch.Tensor:
     """Prefill serve step: full forward, returns last-position logits."""
-    return forward(params, tokens, cfg)[0][:, -1]
+    return forward(params, tokens, cfg, constrain)[0][:, -1]
 
 
 # ---------------------------------------------------------------------------
@@ -401,16 +468,25 @@ def _ash_attention(params, cfg, cache, l, q, k, v, cache_len, valid,
                    use_kernel):
     """ASH-KV attention of one layer: encode and write the new K/V at
     ``cache_len``, then the reduced-space attention over the layer's
-    packed cache, read in place, and the V decode once per head."""
+    packed cache, read in place, and the V decode once per head.  A cache
+    of DTensors (a dry-run's) runs this on each card's sequences
+    (``common.per_row``), the cache's sequence axis whole there."""
+    layer = (cache["k_codes"][l], cache["v_codes"][l], cache["k_scale"][l],
+             cache["v_scale"][l])
+    return cm.per_row(
+        functools.partial(_ash_layer, cfg, cache_len=cache_len, valid=valid,
+                          use_kernel=use_kernel),
+        q, k, v, *layer, shared=(params.kv_Wk[l], params.kv_Wv[l]))
+
+
+def _ash_layer(cfg, q, k, v, k_codes, v_codes, k_scale, v_scale, Wk_l, Wv_l,
+               *, cache_len, valid, use_kernel):
     B = q.shape[0]
     H, KV, dh, dc = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.code_dim
     b = cfg.kv_quant_bits
-    Wk_l, Wv_l = params.kv_Wk[l], params.kv_Wv[l]  # (KV, dc, dh)
     # K and V in one encode: half the small launches of a step
     (kc, vc), (ks, vs) = _encode_kv(torch.stack([Wk_l, Wv_l])[:, None],
                                     torch.stack([k, v]), b)
-    k_codes, v_codes = cache["k_codes"][l], cache["v_codes"][l]
-    k_scale, v_scale = cache["k_scale"][l], cache["v_scale"][l]
     k_codes[:, cache_len] = kc
     v_codes[:, cache_len] = vc
     k_scale[:, cache_len] = ks.to(cfg.dtype)
@@ -439,6 +515,9 @@ def _bf16_attention(cfg, cache, l, q, k, v, cache_len, valid):
     B = q.shape[0]
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     kc, vc = cache["k"][l], cache["v"][l]
+    if cm.is_dtensor(kc):
+        return _sharded_cache_attention(cfg, kc, vc, q, k, v, cache_len,
+                                        valid)
     kc[:, cache_len] = k.to(cfg.dtype)
     vc[:, cache_len] = v.to(cfg.dtype)
     qr = q.reshape(B, KV, H // KV, dh).to(cfg.dtype)
@@ -451,21 +530,73 @@ def _bf16_attention(cfg, cache, l, q, k, v, cache_len, valid):
     return attn.reshape(B, H * dh).to(cfg.dtype)
 
 
+def _sharded_cache_attention(cfg, kc, vc, q, k, v, cache_len, valid):
+    """:func:`_bf16_attention` over a cache sharded as DTensors (the
+    dry-run's, ``launch.analysis``): batch over the data axes and the
+    sequence over others (flash-decoding).  Each card writes the new K/V
+    into its slice if the position falls there, attends over its slice,
+    and the slices combine across the sequence axes: the largest logit,
+    then the rescaled sums of p and p·v (all-reduces of (B, H) and
+    (B, H, dh) values)."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = kc.device_mesh
+    seq_axes = [i for i, p in enumerate(kc.placements)
+                if isinstance(p, Shard) and p.dim == 1]
+    batch = [Shard(0) if isinstance(p, Shard) and p.dim == 0
+             else Replicate() for p in kc.placements]
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    coord = mesh.get_coordinate() or [0] * mesh.ndim
+
+    def local(q, k, v, kc, vc):
+        B, S_l = q.shape[0], kc.shape[1]
+        start = 0
+        for i in seq_axes:  # this card's slice of the sequence
+            start = start * mesh.size(i) + coord[i] * S_l
+        if start <= cache_len < start + S_l:
+            kc[:, cache_len - start] = k.to(cfg.dtype)
+            vc[:, cache_len - start] = v.to(cfg.dtype)
+        qr = q.reshape(B, KV, H // KV, dh).to(cfg.dtype)
+        logits = torch.einsum("bkgd,bskd->bkgs", qr.to(torch.float32),
+                              kc.to(torch.float32)) / math.sqrt(dh)
+        logits = torch.where(valid[start:start + S_l], logits, -1e30)
+        m = logits.amax(dim=-1, keepdim=True)
+        for i in seq_axes:
+            m = funcol.all_reduce(m, "max", (mesh, i))
+        e = torch.exp(logits - m)
+        den = e.sum(dim=-1, keepdim=True)
+        out = torch.einsum("bkgs,bskd->bkgd", e, vc.to(torch.float32))
+        for i in seq_axes:
+            den = funcol.all_reduce(den, "sum", (mesh, i))
+            out = funcol.all_reduce(out, "sum", (mesh, i))
+        return (out / den).reshape(B, H * dh).to(cfg.dtype)
+
+    return local_map(local, out_placements=batch,
+                     in_placements=(batch,) * 3 + (kc.placements,) * 2,
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, k, v, kc, vc)
+
+
 @torch.no_grad()
 def decode_step(params: Transformer, cache: dict, tokens: torch.Tensor,
-                cache_len: int, cfg: TransformerConfig, *,
-                use_kernel: bool = True):
+                cache_len: int, cfg: TransformerConfig,
+                constrain=cm.keep, *, use_kernel: bool = True):
     """One decode step: the next input token per sequence (B,) at
     position ``cache_len`` (the current prefix length).  Writes the new
     K/V into ``cache`` in place and returns (logits (B, V) fp32, cache).
 
     With an ASH-KV config the attention goes through
     ``ops.ash_kv_attention``: the CUDA kernel for a cache on the card,
-    its plain version on the CPU or with ``use_kernel=False``.
+    its plain version on the CPU or with ``use_kernel=False``.  As in the
+    reference, ``constrain`` reaches only an MoE layer's buffers.
     """
     B = tokens.shape[0]
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    cache_len = int(cache_len)
+    with host_scalars():
+        cache_len = int(cache_len)
+    moe_constrain = cm.only("moe_buffer", constrain)
     x = params.embed[tokens.long()].to(cfg.dtype)  # (B, D)
     dev = x.device
     max_len = (cache["k_codes"] if cfg.kv_quant_bits else cache["k"]).shape[2]
@@ -482,5 +613,5 @@ def decode_step(params: Transformer, cache: dict, tokens: torch.Tensor,
                                   valid, use_kernel)
         else:
             attn = _bf16_attention(cfg, cache, l, q, k, v, cache_len, valid)
-        x = _ffn(cfg, lp, x + attn @ lp.wo)[0]
+        x = _ffn(cfg, lp, x + attn @ lp.wo, moe_constrain)[0]
     return _logits(params, cfg, x), cache

@@ -32,7 +32,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.core.learning import newton_schulz
-from repro_torch.device import full_fp32
+from repro_torch.device import full_fp32, host_scalars
 
 CHUNK_ELEMS = 1 << 24  # elements a chunk of AdamW's and apply's row loops
 
@@ -84,9 +84,14 @@ def tree_map(fn, tree, *rest):
 
 def _chunks(*tensors, max_elems: int = CHUNK_ELEMS):
     """Matching slices of same-shape tensors along dim 0, each of at most
-    ``max_elems`` elements (at least one row)."""
+    ``max_elems`` elements (at least one row).  A DTensor sharded along
+    dim 0 (a leaf of ``configs.base``'s sharded states) is not sliced: a
+    slice of its sharded dim would gather it, and each card's shard is
+    already a fraction."""
     t0 = tensors[0]
-    if t0.dim() == 0 or t0.numel() <= max_elems:
+    if (t0.dim() == 0 or t0.numel() <= max_elems
+            or any(getattr(p, "dim", None) == 0
+                   for p in getattr(t0, "placements", ()))):
         yield tensors
         return
     rows = max(1, max_elems // (t0.numel() // t0.shape[0]))
@@ -103,6 +108,7 @@ def _f32(x) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+@host_scalars()
 def lr_at(cfg: OptConfig, step) -> float:
     """Linear warmup then cosine decay to 10 % of ``cfg.lr``, in fp32;
     ``step`` an int or an int tensor.  The fp32 value as a float."""
@@ -136,6 +142,7 @@ def clip_by_global_norm(tree, max_norm: float):
     return tree, gn
 
 
+@host_scalars()
 def _pow_correction(b: float, step: torch.Tensor) -> float:
     """1 - b ** step in fp32 (Adam's bias correction)."""
     return float(1 - _f32(b) ** step.float())
@@ -152,8 +159,25 @@ class AdamState(NamedTuple):
     nu: Any
 
 
+@host_scalars()
 def _step0() -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32)
+
+
+@host_scalars()
+def next_step(step: torch.Tensor) -> torch.Tensor:
+    """``step + 1``: the CPU counter of a state, kept real in a trace."""
+    return step + 1
+
+
+@host_scalars()
+def _adafactor_decay(step: torch.Tensor) -> float:
+    return float(1.0 - (step.float() + 1.0) ** -0.8)
+
+
+@host_scalars()
+def _muon_scale(shape) -> float:
+    return float(torch.sqrt(_f32(max(shape)) / _f32(min(shape))))
 
 
 def adamw_init(cfg: OptConfig, params) -> AdamState:
@@ -166,7 +190,7 @@ def adamw_init(cfg: OptConfig, params) -> AdamState:
 
 @torch.no_grad()
 def adamw_update(cfg: OptConfig, grads, state: AdamState, params):
-    step = state.step + 1
+    step = next_step(state.step)
     lr = lr_at(cfg, step)
     grads, _ = clip_by_global_norm(grads, cfg.grad_clip)
     bc1 = _pow_correction(cfg.b1, step)
@@ -207,6 +231,20 @@ def _factored(p) -> bool:
     return p.dim() >= 2
 
 
+def _settled(t):
+    """``t``, or for a DTensor mean over a sharded dim (pending sums on
+    some mesh axes) the same values with the sums reduced, before it
+    meets a sharded operand; a plain tensor as it is."""
+    pending = [getattr(p, "is_partial", lambda: False)()
+               for p in getattr(t, "placements", ())]
+    if not any(pending):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    return t.redistribute(placements=[
+        Replicate() if d else p for p, d in zip(t.placements, pending)])
+
+
 def adafactor_init(cfg: OptConfig, params) -> AdafactorState:
     f32 = torch.float32
 
@@ -235,18 +273,19 @@ def adafactor_init(cfg: OptConfig, params) -> AdafactorState:
 
 @torch.no_grad()
 def adafactor_update(cfg: OptConfig, grads, state: AdafactorState, params):
-    step = state.step + 1
+    step = next_step(state.step)
     lr = lr_at(cfg, step)
     grads, _ = clip_by_global_norm(grads, cfg.grad_clip)
-    decay = float(1.0 - (step.float() + 1.0) ** -0.8)
+    decay = _adafactor_decay(step)
 
     def upd(g, m, vr, vc, v, p):
         g32 = g.to(torch.float32)
         g2 = g32 * g32 + 1e-30
         if _factored(p):
-            vr_n = decay * vr + (1 - decay) * g2.mean(dim=-1)
-            vc_n = decay * vc + (1 - decay) * g2.mean(dim=-2)
-            denom = torch.clamp(vr_n.mean(dim=-1, keepdim=True), min=1e-30)
+            vr_n = decay * vr + (1 - decay) * _settled(g2.mean(dim=-1))
+            vc_n = decay * vc + (1 - decay) * _settled(g2.mean(dim=-2))
+            denom = torch.clamp(_settled(vr_n.mean(dim=-1, keepdim=True)),
+                                min=1e-30)
             vhat = vr_n[..., None] * vc_n[..., None, :] / denom[..., None]
             vr.copy_(vr_n)
             vc.copy_(vc_n)
@@ -286,7 +325,7 @@ def muon_init(cfg: OptConfig, params) -> MuonState:
 @torch.no_grad()
 def muon_update(cfg: OptConfig, grads, state: MuonState, params):
     full_fp32()
-    step = state.step + 1
+    step = next_step(state.step)
     lr = lr_at(cfg, step)
     grads, _ = clip_by_global_norm(grads, cfg.grad_clip)
 
@@ -295,7 +334,7 @@ def muon_update(cfg: OptConfig, grads, state: MuonState, params):
         if p.dim() == 2 and min(p.shape) > 1:
             # polar factor of m32 (== U V^T of its SVD), same shape
             o = newton_schulz(m32.T, steps=cfg.ns_steps)
-            o = o * float(torch.sqrt(_f32(max(p.shape)) / _f32(min(p.shape))))
+            o = o * _muon_scale(p.shape)
         else:
             o = m32 / (torch.linalg.vector_norm(m32.reshape(-1)) + 1e-9)
         m.copy_(m32)

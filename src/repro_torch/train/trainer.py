@@ -22,7 +22,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.data.synthetic import fold_seed
-from repro_torch.device import full_fp32
+from repro_torch.device import full_fp32, host_scalars
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as TT
 from repro_torch.train import optim as O
@@ -47,6 +47,7 @@ class TrainConfig:
     grad_accum_dtype: torch.dtype = torch.float32
 
 
+@host_scalars()
 def rng_key(seed: int) -> torch.Tensor:
     """The reference's ``PRNGKey(seed)`` words, [seed >> 32, seed mod 2^32]."""
     return torch.tensor([seed >> 32, seed & 0xFFFFFFFF], dtype=torch.uint32)
@@ -80,12 +81,13 @@ def init_state(seed: int, params, tcfg: TrainConfig) -> TrainState:
         params=params,
         opt_state=opt_init(tree),
         ef_state=ef_init(tree) if tcfg.compression.enabled else None,
-        step=torch.zeros((), dtype=torch.int32),
+        step=O._step0(),
         rng=rng_key(seed),
     )
 
 
-def make_train_step(loss_fn: Callable, tcfg: TrainConfig):
+def make_train_step(loss_fn: Callable, tcfg: TrainConfig,
+                    constrain_grads: Callable = lambda g: g):
     """Returns train_step(state, batch) -> (state, metrics).
 
     ``loss_fn(params, batch)`` -> scalar loss.  ``microbatches`` = k > 1
@@ -94,7 +96,10 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig):
     reference's) and accumulates ``a + g / k`` in ``grad_accum_dtype``
     (the loss as ``loss + loss_m / k`` in fp32); with k = 1 the
     gradients stay in the parameter dtype.  Compression (if enabled)
-    runs before the optimizer.  Metrics (device tensors): ``loss``,
+    runs before the optimizer.  ``constrain_grads`` maps the gradient
+    tree before compression and the optimizer (the cell programs of
+    ``configs.base`` pin it to the parameters' sharding; identity by
+    default).  Metrics (device tensors): ``loss``,
     ``grad_norm`` (after compression, before clipping) and ``step``.
     """
     _, opt_update = O.make_optimizer(tcfg.opt)
@@ -121,9 +126,8 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig):
         batch = {n: v.to(dev) for n, v in batch.items()}
         with torch.profiler.record_function("train.forward_backward"):
             if k > 1:
-                acc = O.tree_map(lambda p: torch.zeros(
-                    p.shape, dtype=tcfg.grad_accum_dtype, device=p.device),
-                    tree)
+                acc = O.tree_map(lambda p: torch.zeros_like(
+                    p, dtype=tcfg.grad_accum_dtype), tree)
                 loss = torch.zeros((), dtype=torch.float32, device=dev)
                 for m in range(k):
                     mb = {n: v[m::k] for n, v in batch.items()}
@@ -139,11 +143,13 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig):
                 loss, grads = grads_of(params, leaves, batch)
                 it = iter(stacked(grads))
                 grads = O.tree_map(lambda _: next(it), tree)
+        grads = constrain_grads(grads)
 
         ef = state.ef_state
         if tcfg.compression.enabled:
             with torch.profiler.record_function("train.compression"):
-                ck = fold_seed(key_seed(state.rng), int(state.step))
+                with host_scalars():
+                    ck = fold_seed(key_seed(state.rng), int(state.step))
                 grads, ef = compress_tree(ck, grads, ef, tcfg.compression)
 
         with torch.profiler.record_function("train.optimizer"):
@@ -151,7 +157,7 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig):
             updates, opt_state = opt_update(grads, state.opt_state, tree)
             O.apply_updates(tree, updates)
         new_state = TrainState(params=params, opt_state=opt_state,
-                               ef_state=ef, step=state.step + 1,
+                               ef_state=ef, step=O.next_step(state.step),
                                rng=state.rng)
         metrics = {"loss": loss, "grad_norm": grad_norm,
                    "step": new_state.step}

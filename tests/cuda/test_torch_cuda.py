@@ -1342,3 +1342,35 @@ def test_sharded_one_shard_per_card_equals_flat(two_cards):
     for kw in (dict(k=10), dict(k=100), dict(k=300), dict(k=10, rerank=64)):
         got, want = sh.search(Q, **kw), flat.search(Q, **kw)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_one_card_plan_argument_bytes_equal_allocated(cuda):
+    """The dry-run's per-card argument bytes of a reduced train cell on a
+    1 x 1 mesh (exact from the specs) equal what the card allocates for
+    that train state, each leaf rounded up to the caching allocator's
+    512-byte blocks; the counters (``step``, ``rng``, the optimizer's
+    step) stay on the CPU."""
+    from repro_torch.configs import base as CB
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh as LM
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.train import reduced_arch
+    from repro_torch.train import trainer as TTR
+
+    arch = reduced_arch(registry.get("granite-moe-3b-a800m"))
+    with LM.mesh_context((1, 1), ("data", "model")) as mesh:
+        _, args = arch.make_cell_program("train_4k", mesh,
+                                         SH.ShardingPolicy())
+        leaves = [(p, SH.local_nbytes(t))
+                  for p, t in CB.state_items(args[0])]
+    counters = ("step", "rng", "opt_state/step")
+    want = sum(-(-b // 512) * 512 for p, b in leaves if p not in counters)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = arch.model.init_params(
+        torch.Generator(device="cuda").manual_seed(0), arch.cfg,
+        device="cuda")
+    state = TTR.init_state(0, params, arch.train_cfg)
+    got = torch.cuda.memory_allocated() - base
+    assert not state.step.is_cuda and not state.rng.is_cuda
+    assert got == want

@@ -253,10 +253,10 @@ def _assert_unambiguous_routing(pt, ct, toks):
     seen = []
     orig = TT.moe_block
 
-    def spy(params, x, cfg):
+    def spy(params, x, cfg, **kw):
         p = torch.softmax(x.double() @ params.router.double(), dim=-1)
         seen.append(-np.sort(-p.detach().numpy(), axis=-1))
-        return orig(params, x, cfg)
+        return orig(params, x, cfg, **kw)
 
     TT.moe_block = spy
     try:
