@@ -3082,7 +3082,7 @@ TRAIN_SEQ = 4096  # the train_4k cell
 TRAIN_RUNS = (("llama3.2-3b", 2, 8), ("granite-moe-3b-a800m", 4, 4))
 TRAIN_DET_STEPS = 3  # 20a: steps again under deterministic algorithms
 TRAIN_RANGES = ("train.forward_backward", "train.compression",
-                "train.optimizer")  # the trainer's profiler ranges
+                "train.optimizer")  # the trainer's spans (tracing.SPANS)
 TRAIN_SAMPLE = 1 << 20  # elements of each leaf kept to see it change
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 # 20c: the reduced archs, card against CPU, 3 steps a variant
@@ -3102,17 +3102,25 @@ TRAIN_LAUNCH_DEVICE = "cuda"
 def train_profile(step, labels):
     """One ``step()`` under torch.profiler: device ms by group (bf16
     cuBLAS, fp32 cuBLAS = the attention einsums, the optimizer's range,
-    the rest), busy and wall ms, the idle share, the busiest kernels."""
+    the rest), busy and wall ms, the idle share, the busiest kernels.
+    Spans are on for the step, so the trainer's ranges are in the trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import tracing
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    was = tracing.enabled()
+    tracing.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        tracing.enable(was)
     dev_us, _, ranges = device_times(prof, labels)
     groups = {"cublas_bf16": 0.0, "cublas_fp32_attention": 0.0,
               "optimizer": ranges.get("train.optimizer", 0.0), "other": 0.0}

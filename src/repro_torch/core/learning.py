@@ -18,6 +18,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import quantization as Q
 from repro_torch.device import full_fp32
 
@@ -142,13 +143,15 @@ def kmeans(
     gen: torch.Generator, X: torch.Tensor, C: int, iters: int = 25
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Lloyd's k-means. Returns (centroids (C, D), assignment (n,))."""
-    if C == 1:
-        mu = X.mean(dim=0, keepdim=True)
-        return mu, torch.zeros(X.shape[0], dtype=torch.int32, device=X.device)
-    centroids = _kmeanspp_init(gen, X, C)
-    for _ in range(iters):
-        centroids = lloyd_step(X, centroids)
-    return centroids, assign_clusters(X, centroids)
+    with tracing.span("build.kmeans"):
+        if C == 1:
+            mu = X.mean(dim=0, keepdim=True)
+            return mu, torch.zeros(X.shape[0], dtype=torch.int32,
+                                   device=X.device)
+        centroids = _kmeanspp_init(gen, X, C)
+        for _ in range(iters):
+            centroids = lloyd_step(X, centroids)
+        return centroids, assign_clusters(X, centroids)
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import quantization as Q
 from repro_torch.core.types import (
     ASHModel, ASHPayload, ASHStats, CoarseCodes, CoarseQueryPrep, QueryPrep,
@@ -28,13 +29,14 @@ def prepare_queries(model: ASHModel, q: torch.Tensor) -> QueryPrep:
     ``q`` moves to the model's device.  Each row's terms are bit-equal
     however many rows are prepared with it (:func:`row_blocked`), so
     rows prepared apart and stacked equal rows prepared together."""
-    full_fp32()
-    q32 = q.to(device=model.device, dtype=torch.float32)
-    W_T, lm_T = model.W.T, model.landmarks.T
-    q_proj, ipl, q_sq = row_blocked(
-        lambda x: (x @ W_T, x @ lm_T, (x * x).sum(dim=-1)), q32)
-    return QueryPrep(q=q32, q_proj=q_proj, ip_q_landmarks=ipl,
-                     q_sq_norm=q_sq)
+    with tracing.span("index.prep"):
+        full_fp32()
+        q32 = q.to(device=model.device, dtype=torch.float32)
+        W_T, lm_T = model.W.T, model.landmarks.T
+        q_proj, ipl, q_sq = row_blocked(
+            lambda x: (x @ W_T, x @ lm_T, (x * x).sum(dim=-1)), q32)
+        return QueryPrep(q=q32, q_proj=q_proj, ip_q_landmarks=ipl,
+                         q_sq_norm=q_sq)
 
 
 def _unpacked(payload: ASHPayload) -> torch.Tensor:

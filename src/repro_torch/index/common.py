@@ -33,6 +33,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import scoring as S
 from repro_torch.core.types import (
     ASHModel, ASHPayload, ASHStats, CoarseCodes, QueryPrep,
@@ -177,28 +178,29 @@ def execute_plan(
 
     ``coarse_cache`` is the backend's :class:`CoarseCodes` for coarse
     plans; when absent it is rebuilt per call (one database unpack)."""
-    validate_metric(plan.metric)
-    if plan.coarse is not None and plan.coarse not in COARSE_MODES:
-        raise ValueError(
-            f"unknown coarse mode {plan.coarse!r}; expected one of "
-            f"{COARSE_MODES} (or None)"
-        )
-    if plan.shortlist is not None and plan.coarse is None:
-        raise ValueError(
-            "shortlist= sets the coarse first-pass size and requires "
-            "coarse='int8'"
-        )
-    if plan.rows is None:
-        return _execute_dense(model, prep, payload, plan, stats=stats,
-                              raw=raw, coarse_cache=coarse_cache)
-    if plan.n_valid is not None or plan.row_valid is not None:
-        raise ValueError(
-            "n_valid/row_valid apply to dense plans only; gathered "
-            "plans mask by pad id (drop tombstoned rows to -1 in "
-            "`rows` before planning)"
-        )
-    return _execute_gather(model, prep, payload, plan, stats=stats,
-                           raw=raw, coarse_cache=coarse_cache)
+    with tracing.span("index.scan"):
+        validate_metric(plan.metric)
+        if plan.coarse is not None and plan.coarse not in COARSE_MODES:
+            raise ValueError(
+                f"unknown coarse mode {plan.coarse!r}; expected one of "
+                f"{COARSE_MODES} (or None)"
+            )
+        if plan.shortlist is not None and plan.coarse is None:
+            raise ValueError(
+                "shortlist= sets the coarse first-pass size and requires "
+                "coarse='int8'"
+            )
+        if plan.rows is None:
+            return _execute_dense(model, prep, payload, plan, stats=stats,
+                                  raw=raw, coarse_cache=coarse_cache)
+        if plan.n_valid is not None or plan.row_valid is not None:
+            raise ValueError(
+                "n_valid/row_valid apply to dense plans only; gathered "
+                "plans mask by pad id (drop tombstoned rows to -1 in "
+                "`rows` before planning)"
+            )
+        return _execute_gather(model, prep, payload, plan, stats=stats,
+                               raw=raw, coarse_cache=coarse_cache)
 
 
 def _coarse_depth(plan: ScanPlan, n_cand: int, want_rerank: bool):
@@ -422,13 +424,15 @@ def exact_rerank(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Re-rank a shortlist (m, R) with exact scores on the raw vectors;
     entries without a valid candidate get (-inf, -1)."""
-    cand = raw[shortlist_rows.clamp(min=0).long()].to(torch.float32)
-    exact = exact_scores(prep, cand, metric)
-    exact = torch.where(torch.isneginf(shortlist_scores), NEG_INF, exact)
-    rs, ri = stable_top_k(exact, k)
-    rows_k = shortlist_rows.gather(1, ri)
-    out = rows_k if ids is None else ids[rows_k.clamp(min=0).long()]
-    return rs, torch.where(torch.isneginf(rs), -1, out).to(torch.int32)
+    with tracing.span("index.rerank"):
+        cand = raw[shortlist_rows.clamp(min=0).long()].to(torch.float32)
+        exact = exact_scores(prep, cand, metric)
+        exact = torch.where(torch.isneginf(shortlist_scores), NEG_INF,
+                            exact)
+        rs, ri = stable_top_k(exact, k)
+        rows_k = shortlist_rows.gather(1, ri)
+        out = rows_k if ids is None else ids[rows_k.clamp(min=0).long()]
+        return rs, torch.where(torch.isneginf(rs), -1, out).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

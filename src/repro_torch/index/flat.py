@@ -16,6 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import ash as A
 from repro_torch.core import scoring as S
 from repro_torch.core.types import (
@@ -68,13 +69,14 @@ def _build(
             model = A.random_model(
                 gen, X.shape[1], config, X_for_landmarks=X, device=dev
             )
-    payload = A.encode(model, X)
-    return FlatIndex(
-        metric=metric, model=model, payload=payload,
-        raw=X.to(torch.bfloat16) if keep_raw else None,
-        stats=S.payload_stats(model, payload),
-        coarse=S.coarse_codes(payload),
-    )
+    with tracing.span("build.encode"):
+        payload = A.encode(model, X)
+        return FlatIndex(
+            metric=metric, model=model, payload=payload,
+            raw=X.to(torch.bfloat16) if keep_raw else None,
+            stats=S.payload_stats(model, payload),
+            coarse=S.coarse_codes(payload),
+        )
 
 
 def _search_prepped(

@@ -29,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import ash as A
 from repro_torch.core import scoring as S
 from repro_torch.core.types import (
@@ -142,10 +143,11 @@ def _build(
             model = A.random_model(
                 gen, X.shape[1], config, X_for_landmarks=X, device=dev
             )
-    payload = A.encode(model, X)
-    ids = torch.arange(payload.n, dtype=torch.int32, device=dev)
-    raw = X.to(torch.bfloat16) if keep_raw else None
-    return _assemble(metric, model, payload, ids, raw)
+    with tracing.span("build.encode"):
+        payload = A.encode(model, X)
+        ids = torch.arange(payload.n, dtype=torch.int32, device=dev)
+        raw = X.to(torch.bfloat16) if keep_raw else None
+        return _assemble(metric, model, payload, ids, raw)
 
 
 def _add(index: IVFIndex, X_new: torch.Tensor) -> IVFIndex:
@@ -232,21 +234,24 @@ def _probe_lists(index: IVFIndex, prep: QueryPrep, nprobe: int
     nprobe) int64: nearest by L2 == max <q, mu> - ||mu||^2 / 2, from
     the prep's landmark inner products; ties to the lowest list id, as
     ``lax.top_k``."""
-    score = (
-        prep.ip_q_landmarks
-        - 0.5 * index.model.landmark_sq_norms[None, :]
-    )
-    return stable_top_k(score, nprobe)[1]
+    with tracing.span("ivf.probe"):
+        score = (
+            prep.ip_q_landmarks
+            - 0.5 * index.model.landmark_sq_norms[None, :]
+        )
+        return stable_top_k(score, nprobe)[1]
 
 
 def candidate_rows(index: IVFIndex, probe: torch.Tensor) -> torch.Tensor:
     """The (m, nprobe * max_list_len) int32 candidate table of probed
     lists, with list padding and tombstoned rows as -1."""
-    m = probe.shape[0]
-    cand = index.invlists[probe.long()].reshape(m, -1)
-    if index.live is not None:
-        cand = torch.where(index.live[cand.clamp(min=0).long()], cand, -1)
-    return cand
+    with tracing.span("ivf.table"):
+        m = probe.shape[0]
+        cand = index.invlists[probe.long()].reshape(m, -1)
+        if index.live is not None:
+            cand = torch.where(index.live[cand.clamp(min=0).long()], cand,
+                               -1)
+        return cand
 
 
 def _score_probed(index: IVFIndex, prep: QueryPrep, probe: torch.Tensor,

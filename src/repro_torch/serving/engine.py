@@ -121,6 +121,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.types import QueryPrep
 from repro_torch.index.api import AshIndex
 from repro_torch.index.common import default_shortlist
@@ -298,8 +299,6 @@ class RequestStats:
     latency_s: float = 0.0  # submit -> result scattered back
     batch_rows: int = 0  # real rows in the fused call
     bucket_rows: int = 0  # padded rows (the fused call's shape)
-    scoring_us: float = 0.0  # fused scoring call and its copy to the
-    # host, whole bucket
     prep_hits: int = 0  # this request's rows found in the prep cache
     prep_misses: int = 0
     # "size" | "budget" (the group's deduped candidate-row bill hit
@@ -334,6 +333,7 @@ class EngineStats:
 
     requests: int = 0
     batches: int = 0  # fused scoring calls
+    queue_wait_s: float = 0.0  # sum of the served requests' queue waits
     batched_rows: int = 0  # real rows served
     padded_rows: int = 0  # zero rows added by bucketing
     prep_hits: int = 0
@@ -398,6 +398,7 @@ class EngineStats:
             "requests": self.requests,
             "batches": self.batches,
             "rows": self.batched_rows,
+            "queue_wait_s": self.queue_wait_s,
             "bucket_fill": round(fill, 3),
             "prep_hits": self.prep_hits,
             "prep_misses": self.prep_misses,
@@ -1538,54 +1539,56 @@ class QueryEngine:
         self, group: tuple, reason: str,
         pressure: Optional[float] = None,
     ) -> int:
-        name = group[0]
-        if pressure is None and self.config.nprobe_min is not None:
-            # undriven flush with adaptive probing armed: sample the
-            # backlog before popping this group out of it
-            pressure = self.queue_pressure()
-        with self.mutation_barrier(name):
-            with self._lock:
-                queued = group in self._pending
-            if queued:
-                # every queued query of this index was submitted AFTER
-                # the mutations still pending for it (each mutation
-                # submission barrier-flushed the older queries before
-                # staging), so applying the backlog here makes the
-                # batch observe exactly the mutations submitted before
-                # it — including during a barrier flush, where the
-                # NEWEST mutation is not queued yet and therefore
-                # (correctly) not applied.
-                self._apply_mutations(name)
-            with self._lock:
-                reqs = self._pending.pop(group, None)
-                self._group_bills.pop(group, None)
-                if not reqs:
-                    return 0
-                self._pending_rows -= sum(
-                    r.queries.shape[0] for r in reqs
-                )
-                self.stats.flushes[reason] += 1
-                self._space.notify_all()  # queue rows freed
-            eff_nprobe, chunks, bills = self._plan_chunks(
-                group, reqs, pressure
-            )
-            for i, chunk in enumerate(chunks):
-                try:
-                    self._run_batch(
-                        group, chunk, reason,
-                        eff_nprobe=eff_nprobe, billed=bills[i],
+        with tracing.span("engine.flush"):
+            name = group[0]
+            if pressure is None and self.config.nprobe_min is not None:
+                # undriven flush with adaptive probing armed: sample the
+                # backlog before popping this group out of it
+                pressure = self.queue_pressure()
+            with self.mutation_barrier(name):
+                with self._lock:
+                    queued = group in self._pending
+                if queued:
+                    # every queued query of this index was submitted AFTER
+                    # the mutations still pending for it (each mutation
+                    # submission barrier-flushed the older queries before
+                    # staging), so applying the backlog here makes the
+                    # batch observe exactly the mutations submitted before
+                    # it — including during a barrier flush, where the
+                    # NEWEST mutation is not queued yet and therefore
+                    # (correctly) not applied.
+                    self._apply_mutations(name)
+                with self._lock:
+                    reqs = self._pending.pop(group, None)
+                    self._group_bills.pop(group, None)
+                    if not reqs:
+                        return 0
+                    self._pending_rows -= sum(
+                        r.queries.shape[0] for r in reqs
                     )
-                except Exception as e:
-                    # the failed chunk's tickets carry the error
-                    # already (_run_batch); later chunks were popped
-                    # off the queue too, so resolve them with it as
-                    # well — no request may end up neither served nor
-                    # errored
-                    for later in chunks[i + 1:]:
-                        for r in later:
-                            r.ticket._fail(e)
-                    raise
-            return len(reqs)
+                    self.stats.flushes[reason] += 1
+                    self._space.notify_all()  # queue rows freed
+                with tracing.span("engine.plan"):
+                    eff_nprobe, chunks, bills = self._plan_chunks(
+                        group, reqs, pressure
+                    )
+                for i, chunk in enumerate(chunks):
+                    try:
+                        self._run_batch(
+                            group, chunk, reason,
+                            eff_nprobe=eff_nprobe, billed=bills[i],
+                        )
+                    except Exception as e:
+                        # the failed chunk's tickets carry the error
+                        # already (_run_batch); later chunks were popped
+                        # off the queue too, so resolve them with it as
+                        # well — no request may end up neither served nor
+                        # errored
+                        for later in chunks[i + 1:]:
+                            for r in later:
+                                r.ticket._fail(e)
+                        raise
+                return len(reqs)
 
     def _plan_chunks(
         self,
@@ -1719,15 +1722,18 @@ class QueryEngine:
                 # per-request search.
                 k_run = min(k_run, shortlist)
 
-            prep, hit_rows = self._prep_for(name, idx, rows, n_real)
-            t_score = time.perf_counter()  # after prep/hash: the stat
-            scores, ids = idx.search_prepped(  # is the fused call and
-                prep, k=k_run, nprobe=nprobe, rerank=rerank,  # its copy
-                **dict(opts),
-            )
+            with tracing.span("engine.prep"):
+                prep, hit_rows = self._prep_for(name, idx, rows, n_real)
+            t_score = time.perf_counter()  # after prep/hash: queue wait
+            with tracing.span("engine.call"):
+                scores, ids = idx.search_prepped(
+                    prep, k=k_run, nprobe=nprobe, rerank=rerank,
+                    **dict(opts),
+                )
             # one copy to the host per field; the first waits for the
             # fused call, so a kernel fault surfaces here, on its tickets
-            scores, ids = scores.cpu(), ids.cpu()
+            with tracing.span("engine.copy"):
+                scores, ids = scores.cpu(), ids.cpu()
         except Exception as e:
             # resolve every ticket with the error (a later result()
             # re-raises it) before surfacing at the flush site — an
@@ -1736,53 +1742,55 @@ class QueryEngine:
             for r in reqs:
                 r.ticket._fail(e)
             raise
-        scoring_us = (time.perf_counter() - t_score) * 1e6
 
-        with self._lock:
-            self.stats.batches += 1
-            self.stats.batched_rows += n_real
-            self.stats.padded_rows += bucket - n_real
-            self.stats.compiled_buckets.add(
-                (name, idx.backend, bucket, k_run, nprobe, rerank, opts)
-            )
-
-        offset = 0
-        missed = 0
-        for r in reqs:
-            m = r.queries.shape[0]
-            s = scores[offset:offset + m]
-            i = ids[offset:offset + m]
-            if r.k <= k_run:  # top-k prefix of the bucket's top-k_run
-                s, i = s[:, : r.k], i[:, : r.k]
-            else:  # k > n: pad out with the missing-candidate sentinel
-                pad = r.k - k_run
-                s = torch.cat(
-                    [s, torch.full((m, pad), NEG_INF, dtype=s.dtype)], dim=1
-                )
-                i = torch.cat(
-                    [i, torch.full((m, pad), -1, dtype=i.dtype)], dim=1
-                )
-            now = time.perf_counter()
-            st = r.ticket.stats
-            st.queue_wait_s = t_score - r.t_enqueue
-            st.latency_s = now - r.t_enqueue
-            st.batch_rows = n_real
-            st.bucket_rows = bucket
-            st.scoring_us = scoring_us
-            st.prep_hits = int(hit_rows[offset:offset + m].sum())
-            st.prep_misses = m - st.prep_hits
-            st.flush_reason = reason
-            if r.probe is not None and nprobe is not None:
-                st.effective_nprobe = nprobe
-                st.scanned_rows = billed
-            if r.deadline is not None and now > r.deadline:
-                st.deadline_missed = True
-                missed += 1
-            r.ticket._settle((s, i))
-            offset += m
-        if missed:
+        with tracing.span("engine.resolve"):
             with self._lock:
-                self.stats.deadline_missed += missed
+                self.stats.batches += 1
+                self.stats.batched_rows += n_real
+                self.stats.padded_rows += bucket - n_real
+                self.stats.queue_wait_s += sum(t_score - r.t_enqueue
+                                               for r in reqs)
+                self.stats.compiled_buckets.add(
+                    (name, idx.backend, bucket, k_run, nprobe, rerank, opts)
+                )
+
+            offset = 0
+            missed = 0
+            for r in reqs:
+                m = r.queries.shape[0]
+                s = scores[offset:offset + m]
+                i = ids[offset:offset + m]
+                if r.k <= k_run:  # top-k prefix of the bucket's top-k_run
+                    s, i = s[:, : r.k], i[:, : r.k]
+                else:  # k > n: pad out with the missing-candidate sentinel
+                    pad = r.k - k_run
+                    s = torch.cat(
+                        [s, torch.full((m, pad), NEG_INF, dtype=s.dtype)],
+                        dim=1,
+                    )
+                    i = torch.cat(
+                        [i, torch.full((m, pad), -1, dtype=i.dtype)], dim=1
+                    )
+                now = time.perf_counter()
+                st = r.ticket.stats
+                st.queue_wait_s = t_score - r.t_enqueue
+                st.latency_s = now - r.t_enqueue
+                st.batch_rows = n_real
+                st.bucket_rows = bucket
+                st.prep_hits = int(hit_rows[offset:offset + m].sum())
+                st.prep_misses = m - st.prep_hits
+                st.flush_reason = reason
+                if r.probe is not None and nprobe is not None:
+                    st.effective_nprobe = nprobe
+                    st.scanned_rows = billed
+                if r.deadline is not None and now > r.deadline:
+                    st.deadline_missed = True
+                    missed += 1
+                r.ticket._settle((s, i))
+                offset += m
+            if missed:
+                with self._lock:
+                    self.stats.deadline_missed += missed
 
     # -- prep cache ---------------------------------------------------
 

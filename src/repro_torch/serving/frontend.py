@@ -59,6 +59,7 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.serving.engine import MutationTicket, QueryEngine, Ticket
 
 
@@ -187,35 +188,37 @@ class ServingFrontend:
     def _drive(self) -> None:
         eng = self.engine
         while True:
-            self._work.wait(self.config.poll_interval_s)
+            with tracing.span("engine.wait"):
+                self._work.wait(self.config.poll_interval_s)
             self._work.clear()
             if self._closed:
                 return  # stop() drains after the join
-            try:
-                # one pressure sample per tick, taken before any flush
-                # drains the backlog, so every group flushed this tick
-                # sees the same load-adaptive nprobe decision
-                p = eng.queue_pressure()
-                eng.flush_ready(p)  # size + budget + pressure
-                eng.poll(p)  # timeout + deadline + aged mutations
-                with eng._lock:
-                    eng.stats.driver_consecutive_failures = 0
-            except Exception as e:
-                # fused-call errors already resolved their tickets and
-                # the driver must outlive them — but record every
-                # failure, and once the fault proves persistent stop
-                # hanging callers: fail the queued tickets with the
-                # captured cause
-                with eng._lock:
-                    eng.stats.driver_failures += 1
-                    eng.stats.driver_consecutive_failures += 1
-                    eng.stats.driver_last_error = repr(e)
-                    streak = eng.stats.driver_consecutive_failures
-                if streak >= self.config.max_driver_failures:
-                    try:
-                        eng._abort_pending(e)
-                    except Exception:
-                        pass
+            with tracing.span("engine.tick"):
+                try:
+                    # one pressure sample per tick, taken before any flush
+                    # drains the backlog, so every group flushed this tick
+                    # sees the same load-adaptive nprobe decision
+                    p = eng.queue_pressure()
+                    eng.flush_ready(p)  # size + budget + pressure
+                    eng.poll(p)  # timeout + deadline + aged mutations
+                    with eng._lock:
+                        eng.stats.driver_consecutive_failures = 0
+                except Exception as e:
+                    # fused-call errors already resolved their tickets and
+                    # the driver must outlive them — but record every
+                    # failure, and once the fault proves persistent stop
+                    # hanging callers: fail the queued tickets with the
+                    # captured cause
+                    with eng._lock:
+                        eng.stats.driver_failures += 1
+                        eng.stats.driver_consecutive_failures += 1
+                        eng.stats.driver_last_error = repr(e)
+                        streak = eng.stats.driver_consecutive_failures
+                    if streak >= self.config.max_driver_failures:
+                        try:
+                            eng._abort_pending(e)
+                        except Exception:
+                            pass
 
     # -- supervision --------------------------------------------------
 

@@ -10,7 +10,8 @@ trainable and gives the training tree (the reference's leaves, a
 transformer's layer weights stacked along L) that the optimizer updates
 in place, and the tensors autograd differentiates.  The step returns a new
 ``TrainState`` whose ``params``, ``opt_state`` and ``ef_state`` are the
-same objects, updated.  Each step's work is in three profiler ranges,
+same objects, updated.  Each step's work is in three spans
+(``repro_torch.tracing``, profiler ranges while tracing is on),
 ``train.forward_backward``, ``train.compression`` and
 ``train.optimizer``.
 """
@@ -21,6 +22,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.data.synthetic import fold_seed
 from repro_torch.device import full_fp32, host_scalars
 from repro_torch.models import common as cm
@@ -124,7 +126,7 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig,
         tree, leaves = trainable(params)
         dev = O.tree_leaves(tree)[0].device
         batch = {n: v.to(dev) for n, v in batch.items()}
-        with torch.profiler.record_function("train.forward_backward"):
+        with tracing.span("train.forward_backward"):
             if k > 1:
                 acc = O.tree_map(lambda p: torch.zeros_like(
                     p, dtype=tcfg.grad_accum_dtype), tree)
@@ -147,12 +149,12 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig,
 
         ef = state.ef_state
         if tcfg.compression.enabled:
-            with torch.profiler.record_function("train.compression"):
+            with tracing.span("train.compression"):
                 with host_scalars():
                     ck = fold_seed(key_seed(state.rng), int(state.step))
                 grads, ef = compress_tree(ck, grads, ef, tcfg.compression)
 
-        with torch.profiler.record_function("train.optimizer"):
+        with tracing.span("train.optimizer"):
             grad_norm = O.global_norm(grads)
             updates, opt_state = opt_update(grads, state.opt_state, tree)
             O.apply_updates(tree, updates)
