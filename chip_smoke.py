@@ -1757,16 +1757,16 @@ def serving_phases(results, index, ivf, queries):
                                                 timeout=120.0, **kw), n_q))
             s = e.stats.snapshot()  # the warm-up included: C rows
             row["engine"].update(
-                kernel_launches_per_query=sum(
-                    TK.launch_counts.values()) / row["engine"]["requests"],
+                kernel_launches_per_query=TK.kernel_launches()
+                / row["engine"]["requests"],
                 fused_calls=s["batches"], bucket_fill=s["bucket_fill"],
                 prep_hit_rate=s["prep_hit_rate"], flushes={
                     r: v for r, v in s["flushes"].items() if v})
             row["direct"] = _closed_loop(
                 C, per, lambda i: [t.cpu() for t in idx.search(
                     queries[i:i + 1], k=10, **kw)], n_q)
-            row["direct"]["kernel_launches_per_query"] = sum(
-                TK.launch_counts.values()) / row["direct"]["requests"]
+            row["direct"]["kernel_launches_per_query"] = \
+                TK.kernel_launches() / row["direct"]["requests"]
             loops[f"{name}_C{C}"] = row
             log("engine_closed_loop", cell=f"{name}_C{C}", **row)
     # where an engine flush's time goes: PROF_FLUSHES fused calls of

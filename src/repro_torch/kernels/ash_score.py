@@ -28,8 +28,10 @@ launches from several threads at once.
 Bound and design notes are in the CUDA sources.  The fused dense,
 gathered and coarse scans (kernels 2, 4 and 6) emit a strip of 64-bit
 selection keys, one sorted list per span of tiles
-(``ref.span_geometry``; ``ref.gather_span_geometry`` for the gathered
-scan, whose keys carry candidate positions), and
+(``ref.dense_span_geometry`` for the dense scan, whose blocks take 8 or
+32 queries, ``ref.dense_query_chunk``; ``ref.span_geometry`` for the
+coarse scan; ``ref.gather_span_geometry`` for the gathered scan, whose
+keys carry candidate positions), and
 ``ash_topk_merge_cuda`` reduces it to the top-k with one more launch
 (``csrc/ash_select.cu``, counted as ``ash_topk_merge``), mapping the
 gathered scan's positions back to payload rows on the card.
@@ -50,6 +52,9 @@ launch_counts = {
     "ash_score_gather": 0, "ash_score_gather_topk": 0,
     "ash_score_coarse": 0, "ash_score_coarse_topk": 0,
     "ash_topk_merge": 0,
+    # the launches of ash_score_topk that took the wide query chunk
+    # (ref.WIDE_CHUNK queries a block), counted in ash_score_topk too
+    "ash_score_topk_wide": 0,
 }
 # the same merge launches, counted again under the fused scan whose strip
 # each one reduced
@@ -62,7 +67,7 @@ _I = ctypes.c_int
 # function ends with the stream pointer and returns a cudaError code
 _ENTRY_POINTS = {
     "ash_score": {"ash_score_launch": (9, 6),
-                  "ash_score_topk_launch": (10, 9)},
+                  "ash_score_topk_launch": (10, 10)},
     "ash_gather": {"ash_gather_launch": (10, 7),
                    "ash_gather_topk_launch": (10, 10)},
     "ash_coarse": {"ash_coarse_launch": (11, 6),
@@ -81,6 +86,14 @@ def count_launch(counts: dict, name: str) -> None:
     unguarded ``+= 1`` from two threads can lose one)."""
     with _count_lock:
         counts[name] += 1
+
+
+def kernel_launches() -> int:
+    """Kernel launches counted so far (``ash_score_topk_wide`` is a part
+    of ``ash_score_topk``, not a launch of its own)."""
+    with _count_lock:
+        return sum(c for name, c in launch_counts.items()
+                   if name != "ash_score_topk_wide")
 
 
 def reset_launch_counts() -> None:
@@ -174,6 +187,20 @@ def _target_spans(device) -> int:
     return 2 * _sms(device)
 
 
+_smem_optin: dict[int, int] = {}
+
+
+def _smem_max(device) -> int:
+    """Shared bytes a block may take on ``device`` (opted in)."""
+    i = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if i not in _smem_optin:
+        _smem_optin[i] = getattr(torch.cuda.get_device_properties(i),
+                                 "shared_memory_per_block_optin",
+                                 ref.SMEM_BLOCK_MAX)
+    return _smem_optin[i]
+
+
 def ash_topk_merge_cuda(keys: torch.Tensor, k: int, run: int, rows=None,
                         *, scan=None):
     """(m, k) f32 scores and int32 ids of a (m, width) int64 strip of
@@ -217,10 +244,11 @@ def ash_topk_merge_cuda(keys: torch.Tensor, k: int, run: int, rows=None,
     return vals, ids
 
 
-def _fused_select(scan, launch, n, m, k, k_tilde, device):
+def _fused_select(scan, launch, m, k, device, geometry):
     """Run the fused scan ``scan`` into a key strip (``launch(strip, L,
-    tiles_per_span, n_spans)``), then merge it: (m, k) scores, ids."""
-    n_spans, per, L = ref.span_geometry(n, k, k_tilde, _target_spans(device))
+    tiles_per_span, n_spans)``) of ``geometry`` (n_spans, tiles_per_span,
+    L), then merge it: (m, k) scores, ids."""
+    n_spans, per, L = geometry
     if k > MERGE_MAX_K:
         raise ValueError(f"k={k}: the strip merge takes k <= "
                          f"{MERGE_MAX_K}; use the materializing kernel")
@@ -284,15 +312,23 @@ def ash_score_topk_cuda(
            rowterm, metric, b)
     n, wd = codes.shape
     m = q_proj.shape[0]
-    return _fused_select(
-        "ash_score_topk", lambda strip, L, per, n_spans: _launch(
-            "ash_score", "ash_score_topk_launch", "ash_score_topk",
-            codes.device,
-            _ptr(codes), _ptr(q_proj), _ptr(scale), _ptr(offset),
-            _ptr(cluster), _ptr(ip_q_landmarks), _ptr(qterm), _ptr(rowterm),
-            _ptr(mask), _ptr(strip), n, m, wd, ip_q_landmarks.shape[1], b,
-            _METRIC_CODE[metric], L, per, n_spans),
-        n, m, k, k_tilde, codes.device)
+    dev = codes.device
+    L = ref.span_geometry(n, k, k_tilde)[2]
+    chunk = ref.dense_query_chunk(m, q_proj.shape[1], L, _smem_max(dev))
+
+    def launch(strip, L, per, n_spans):
+        _launch("ash_score", "ash_score_topk_launch", "ash_score_topk", dev,
+                _ptr(codes), _ptr(q_proj), _ptr(scale), _ptr(offset),
+                _ptr(cluster), _ptr(ip_q_landmarks), _ptr(qterm),
+                _ptr(rowterm), _ptr(mask), _ptr(strip), n, m, wd,
+                ip_q_landmarks.shape[1], b, _METRIC_CODE[metric], L, per,
+                n_spans, chunk)
+        if chunk == ref.WIDE_CHUNK:
+            count_launch(launch_counts, "ash_score_topk_wide")
+
+    return _fused_select("ash_score_topk", launch, m, k, dev,
+                         ref.dense_span_geometry(n, m, k, k_tilde, chunk,
+                                                 _sms(dev)))
 
 
 def _launch(source: str, fn: str, name: str, device, *args) -> None:
@@ -455,4 +491,5 @@ def ash_score_coarse_topk_cuda(
             _ptr(qterm), _ptr(rowterm), _ptr(mask), _ptr(strip), n, m, wd,
             ip_q_landmarks.shape[1], b, _METRIC_CODE[metric], L, per,
             n_spans),
-        n, m, k, k_tilde, codes.device)
+        m, k, codes.device,
+        ref.span_geometry(n, k, k_tilde, _target_spans(codes.device)))

@@ -265,4 +265,120 @@ __device__ __forceinline__ void span_topk(const ScanArgs& a,
   }
 }
 
+// -- the register-tiled dense scan's span loop (ash_score.cu) ---------------
+// Block (x, y) walks tiles [x * tiles_per_span, ...) of TOPK_BLOCK_N rows
+// for the QC = G * MT queries of chunk y.  Thread (g, u), g = tid / T with
+// T = TOPK_BLOCK_N / ROWS threads a group, scores rows u, u + T, ..,
+// u + (ROWS - 1) T of a tile against the MT queries g*MT .. g*MT + MT - 1
+// (`score(j, q0, s)` fills s[ROWS][MT] for clamped rows j and the
+// group's first query q0), so every warp serves one query group.  Each
+// query has one list in shared memory, fed by the warps of its group
+// under a lock, and no block barrier stands between two tiles: a warp
+// compares its 32 * ROWS scores of a query with the query's bound (a
+// score below the bound's score cannot beat it; ties and NaN go on), and
+// where any lane holds a candidate, the warp takes the query's lock and
+// absorbs its candidates (warp_absorb: exact compares with the bound, a
+// sort of at most 32 * ROWS keys in `take`, its own shared slots, and a
+// merge).  The bound a warp reads outside the lock may be older than the
+// list's, which only lets more keys through.  The warps of a group drift
+// apart, so one warp's selection and loads overlap the others' FMAs.
+template <int QC>
+__host__ __device__ __forceinline__ size_t tiled_select_bytes(int L) {
+  return sizeof(unsigned long long) *
+             ((size_t)QC * 32 * list_lanes(L) + QC +  // lists, bounds
+              (size_t)(QC / MT) * TOPK_BLOCK_N) +     // each warp's take
+         sizeof(int) * QC;                            // locks
+}
+
+template <int N, int G, int ROWS, typename ScoreRows>
+__device__ __forceinline__ void tiled_span_topk(
+    const ScanArgs& a, const int32_t* __restrict__ mask, int L,
+    int tiles_per_span, int n_spans, void* sel_base,
+    unsigned long long* __restrict__ strip, ScoreRows score) {
+  constexpr int LR = 32 * N;
+  constexpr int QC = G * MT;
+  constexpr int T = TOPK_BLOCK_N / ROWS;
+  constexpr int WARPS = G * T / 32;
+  static_assert(T % 32 == 0 && (ROWS & (ROWS - 1)) == 0 && ROWS <= 8,
+                "whole warps a group, a power-of-two take of 8 keys a lane");
+  const int m0 = blockIdx.y * QC;
+  const int mc = min(QC, a.m - m0);
+  unsigned long long* lists = static_cast<unsigned long long*>(sel_base);
+  unsigned long long* bound = lists + QC * LR;                  // [QC]
+  unsigned long long* takes = bound + QC;                        // [WARPS]
+  int* lock = reinterpret_cast<int*>(takes + WARPS * 32 * ROWS);  // [QC]
+  for (int t = threadIdx.x; t < QC * LR; t += blockDim.x)
+    lists[t] = INVALID_KEY;
+  if (threadIdx.x < QC) {
+    bound[threadIdx.x] = INVALID_KEY;
+    lock[threadIdx.x] = 0;
+  }
+  __syncthreads();
+  const int lane = lane_id(), w = threadIdx.x >> 5;
+  unsigned long long* take = takes + (size_t)w * 32 * ROWS;
+  const int u = threadIdx.x % T, q0 = (threadIdx.x / T) * MT;
+  const int nq = max(0, min(MT, mc - q0));  // the group's live queries
+  const int n_tiles = (a.n + TOPK_BLOCK_N - 1) / TOPK_BLOCK_N;
+  const int t0 = blockIdx.x * tiles_per_span;
+  const int t1 = nq > 0 ? min(t0 + tiles_per_span, n_tiles) : t0;
+  for (int tile = t0; tile < t1; ++tile) {
+    int j[ROWS];
+    unsigned ok = 0u;
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const int jr = tile * TOPK_BLOCK_N + u + r * T;
+      if (jr < a.n && (mask == nullptr || __ldg(mask + jr) != 0))
+        ok |= 1u << r;
+      j[r] = min(jr, a.n - 1);
+    }
+    float s[ROWS][MT];
+    score(j, q0, s);
+    unsigned pend = 0u;  // the queries some lane holds a candidate of
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const float bs = key_score(bound[q0 + i]);
+      bool any = false;
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+        any |= ((ok >> r) & 1u) && !(s[r][i] < bs);
+      if (__any_sync(FULL_MASK, any && i < nq)) pend |= 1u << i;
+    }
+    while (pend) {  // one absorb site: the code stays one network long
+      const int i = __ffs(pend) - 1;
+      pend &= pend - 1u;
+      float si[ROWS];
+#pragma unroll
+      for (int c = 0; c < MT; ++c)
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r)
+          if (c == i) si[r] = s[r][c];
+      const float bs = key_score(bound[q0 + i]);
+      unsigned long long k8[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        k8[r] = r < ROWS && ((ok >> r) & 1u) && !(si[r] < bs)
+                    ? make_key(si[r], tile * TOPK_BLOCK_N + u + r * T)
+                    : INVALID_KEY;
+      int* held = lock + q0 + i;
+      if (lane == 0)
+        while (atomicCAS(held, 0, 1) != 0) {
+        }
+      __syncwarp();
+      __threadfence_block();  // the list as the last holder left it
+      warp_absorb<N>(k8, take, lists + (size_t)(q0 + i) * LR, bound + q0 + i,
+                     L);
+      __threadfence_block();
+      __syncwarp();
+      if (lane == 0) atomicExch(held, 0);
+    }
+  }
+  __syncthreads();
+  const size_t width = (size_t)n_spans * L;
+  for (int q = w; q < mc; q += WARPS) {
+    unsigned long long* out =
+        strip + (size_t)(m0 + q) * width + (size_t)blockIdx.x * L;
+    for (int i = lane; i < L; i += 32) out[i] = lists[(size_t)q * LR + i];
+  }
+}
+
 }  // namespace

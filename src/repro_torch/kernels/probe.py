@@ -86,10 +86,19 @@ NO_UNPACK = ("ash_common.cuh", "  const int g = c / K, s = B * (1 + c % K);",
              "  return __uint_as_float(word >> 9 | 0x3f800000u);\n"
              "  const int g = c / K, s = B * (1 + c % K);")
 K1_NO_LDS = ("ash_score.cu",
-             "      const float4 lo = q4[2 * (w * CPW + c)], "
-             "hi = q4[2 * (w * CPW + c) + 1];",
+             "      const float4 lo = q4[QS / 4 * (w * CPW + c)],\n"
+             "                   hi = q4[QS / 4 * (w * CPW + c) + 1];",
              "      const float4 lo = make_float4(0.1f * c, 0.2f, 0.3f, 0.4f),"
              " hi = make_float4(0.5f, 0.6f, 0.7f, 0.8f + w);")
+# kernel 2 without its selection: a tile's scores summed into a value no
+# tile takes, then the next tile
+K2_NO_SELECT = ("ash_select.cuh", "    score(j, q0, s);\n",
+                "    score(j, q0, s);\n    {\n"
+                "      float z = 0.f;\n"
+                "      for (int r = 0; r < ROWS; ++r)\n"
+                "        for (int i = 0; i < MT; ++i) z += s[r][i];\n"
+                "      if (z == 1234.5f) strip[0] = 1;\n"
+                "      continue;\n    }\n")
 SAME_ROWS = ("ash_common.cuh", "a.codes + (size_t)j[r] * a.wd) + w4);",
              "a.codes + (size_t)(r & 1) * a.wd) + w4);")
 K1_NO_MATH = ("ash_score.cu",
@@ -400,12 +409,14 @@ def calls(lib, source, fused, flat, gath, rows, coarse, wide, b, n_sm):
             *head, P(res), n, m, wd, C, b, 0, S()), res)
         if not fused:
             return out
-        n_spans, per, L = ref.span_geometry(n, K, None, 2 * n_sm)
+        chunk = ref.dense_query_chunk(m, q.shape[1], K)
+        n_spans, per, L = ref.dense_span_geometry(n, m, K, None, chunk,
+                                                  n_sm)
         strip = torch.empty(m, n_spans * L, dtype=torch.int64,
                             device=codes.device)
         out["k2_scan"] = (lambda: lib.ash_score_topk_launch(
             *head, None, P(strip), n, m, wd, C, b, 0, L, per, n_spans,
-            S()), strip)
+            chunk, S()), strip)
     elif source == "ash_coarse":
         codes, q, qs, qc, sc, off, cl, ipq = coarse
         n, wd = codes.shape
@@ -446,6 +457,157 @@ def calls(lib, source, fused, flat, gath, rows, coarse, wide, b, n_sm):
             *head, P(strip), n, m, R, wd, C, b, 0, L, per, n_spans,
             S()), strip)
     return out
+
+
+# ``--source k2``: kernel 2 with its merge, (name, m, n, b, d_pad, k): at
+# the t2i cells' shapes (a 1,024-row call, the engine's buckets), at
+# phase 7's and at SASRec's catalog; the wide tile's blocks a call
+# (``ref.dense_span_geometry``) as multiples of the SMs; variants of the
+# kernel timed beside it
+K2_SHAPES = (("cell", 1024, 10_000_000, 2, 128, 100),
+             ("bucket128", 128, 10_000_000, 2, 128, 100),
+             ("bucket32", 32, 10_000_000, 2, 128, 100),
+             ("bucket8", REQ_M, 10_000_000, 2, 128, 100),
+             ("table", REQ_M, 1_000_000, 2, 128, 100),
+             ("sasrec_k10", REQ_M, 1 << 20, 4, 32, 10),
+             ("sasrec_k100", REQ_M, 1 << 20, 4, 32, 100))
+K2_WIDE_BLOCKS = (1, 2, 4)  # the wide tile's blocks a call, an SM
+# (label, constants, edits); "diag" variants are not compared
+K2_VARIANTS = (("diag_no_select", {}, (K2_NO_SELECT,)),)
+K2_ITERS = {"cell": 2, "bucket128": 4, "bucket32": 10, "bucket8": 20,
+            "table": 30, "sasrec_k10": 30, "sasrec_k100": 30}
+FP32_PEAK = 67e12  # FLOP/s, H100 SXM outside the tensor cores
+
+
+def _k2_takes_chunk(csrc: pathlib.Path) -> bool:
+    """Whether a checkout's kernel 2 entry point takes the query chunk
+    (the register-tiled kernel) or predates it."""
+    text = (csrc / "ash_score.cu").read_text()
+    return "int n_spans, int chunk, void* stream" in text
+
+
+def _dense_operands(dev, m, n, b, d_pad, C=64, seed=0):
+    """Random operands of the dense scan (dot): n rows of packed codes,
+    m queries, headers; made on the card from ``seed``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    wd = d_pad * b // 32
+    codes = torch.randint(-2**31, 2**31 - 1, (n, wd), generator=g,
+                          dtype=torch.int32, device=dev)
+    f = lambda *s: torch.rand(*s, generator=g, device=dev) + 0.5  # noqa
+    q = torch.randn(m, d_pad, generator=g, device=dev)
+    cl = torch.randint(0, C, (n,), generator=g, dtype=torch.int32,
+                       device=dev)
+    return codes, q, f(n), f(n) - 1.0, cl, torch.randn(m, C, generator=g,
+                                                        device=dev)
+
+
+def k2_run(parent) -> dict:
+    """Kernel 2 with its merge at ``K2_SHAPES``: this checkout's narrow
+    tile, its wide tile at each block count of ``K2_WIDE_BLOCKS`` and its
+    variants, and with ``parent`` the other checkout's kernel, all in
+    this process on one card; each merged result EQUAL to the first
+    one's; ms a call (CUDA-graph replays) against the fp32 bound."""
+    dev = torch.device("cuda")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    variants = [("shipped", _build.CSRC, "ash_score", {}, ())]
+    variants += [(f"k2_{name}", _build.CSRC, "ash_score", c, e)
+                 for name, c, e in K2_VARIANTS]
+    if parent is not None:
+        variants.append(("parent", parent.resolve(), "ash_score", {}, ()))
+    libs = {label: _load(path, "ash_score")
+            for (label, _), path in build(variants).items()}
+    new_abi = {label: label != "parent" or _k2_takes_chunk(parent)
+               for label in libs}
+    for label, lib in libs.items():
+        if not new_abi[label]:
+            lib.ash_score_topk_launch.argtypes = (
+                [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                + [ctypes.c_void_p])
+    out = dict(registers=_registers(variants), shapes={})
+    P = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    for name, m, n, b, d_pad, k in K2_SHAPES:
+        codes, q, sc, off, cl, ipq = _dense_operands(dev, m, n, b, d_pad)
+        head = [P(codes), P(q), P(sc), P(off), P(cl), P(ipq), None, None]
+        wd, C = codes.shape[1], ipq.shape[1]
+        runs = {}
+
+        def add(key, lib, chunk, geometry):
+            n_spans, per, L = geometry
+            strip = torch.empty(m, n_spans * L, dtype=torch.int64,
+                                device=dev)
+            tail = (L, per, n_spans) + (() if chunk is None else (chunk,))
+
+            def call():
+                rc = lib.ash_score_topk_launch(
+                    *head, None, P(strip), n, m, wd, C, b, 0, *tail,
+                    torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"{key}: cudaError {rc}")
+                return TK.ash_topk_merge_cuda(strip, k, L)
+
+            runs[key] = (call, dict(spans=n_spans, tiles_per_span=per))
+
+        if parent is not None:
+            if new_abi["parent"]:
+                chunk = ref.dense_query_chunk(m, d_pad, k)
+                add("parent", libs["parent"], chunk, ref.dense_span_geometry(
+                    n, m, k, None, chunk, n_sm))
+            else:
+                add("parent", libs["parent"], None,
+                    ref.span_geometry(n, k, None, 2 * n_sm))
+        add(f"shipped/chunk{ref.MT}", libs["shipped"], ref.MT,
+            ref.dense_span_geometry(n, m, k, None, ref.MT, n_sm))
+        for w in K2_WIDE_BLOCKS:
+            add(f"shipped/chunk{ref.WIDE_CHUNK}/blocks{w}x", libs["shipped"],
+                ref.WIDE_CHUNK, ref.dense_span_geometry(
+                    n, m, k, None, ref.WIDE_CHUNK, n_sm, w * n_sm))
+        chunk = ref.dense_query_chunk(m, d_pad, k)
+        for label in libs:
+            if label.startswith("k2_"):
+                add(f"{label}/chunk{chunk}", libs[label], chunk,
+                    ref.dense_span_geometry(n, m, k, None, chunk, n_sm))
+        first, want, rows = None, None, {}
+        for key, (call, info) in runs.items():
+            got = call()
+            torch.cuda.synchronize()
+            if want is None:
+                first, want = key, got
+            rows[key] = dict(info, equal=bool(
+                torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])))
+            if "diag" in key:
+                rows[key]["equal"] = None
+        for order in (list(runs), list(runs)[::-1]):
+            for key in order:
+                rows[key].setdefault("ms", []).append(
+                    graph_ms(runs[key][0], K2_ITERS[name]))
+        bound_ms = m * n * (2 * d_pad + 3) / FP32_PEAK * 1e3
+        for row in rows.values():
+            row["fp32_bound_share"] = bound_ms / min(row["ms"])
+        out["shapes"][name] = dict(m=m, n=n, b=b, d_pad=d_pad, k=k,
+                                   fp32_bound_ms=bound_ms, compared_to=first,
+                                   runs=rows)
+        del codes, q, sc, off, cl, ipq, runs
+        torch.cuda.empty_cache()
+    return out
+
+
+def _registers(variants) -> dict:
+    """Registers and spills of each library's kernel 2 instances at b = 2,
+    dot, lists of 128 keys (``-Xptxas -v`` in the build logs)."""
+    regs = {}
+    for label, _, source, _, _ in variants:
+        log = PROBE_DIR / label / f"{source}.log"
+        cur = ""
+        for ln in log.read_text().splitlines():
+            mt = re.search(r"Compiling entry function '(\S+)'", ln)
+            if mt:
+                cur = mt.group(1)
+            mt = re.search(r"ash_score_topk_kernelILi2ELi0ELi4E(Li(\d+)E)?E",
+                           cur)
+            if mt and ("Used" in ln or "spill" in ln):
+                tile = f"chunk{mt.group(2)}" if mt.group(2) else "parent"
+                regs.setdefault(f"{label}/{tile}", []).append(ln.strip())
+    return regs
 
 
 # ``--source requests``: (name, backend, rows a request, requests,
@@ -561,7 +723,7 @@ def main(argv=None) -> int:
                     help="another checkout's kernels/csrc directory, "
                          "built and timed as the variant 'parent'")
     ap.add_argument("--source", action="append",
-                    choices=(*SOURCES, "requests"),
+                    choices=(*SOURCES, "requests", "k2"),
                     help="only the variants of this file, or request "
                          "times (repeatable; default the three files)")
     ap.add_argument("--request-worker", action="store_true",
@@ -580,7 +742,9 @@ def main(argv=None) -> int:
     result = dict(device=smi, torch=torch.__version__)
     if "requests" in sources:
         result["requests"] = compare_requests(args.parent)
-    sources = [s for s in sources if s != "requests"]
+    if "k2" in sources:
+        result["k2"] = k2_run(args.parent)
+    sources = [s for s in sources if s not in ("requests", "k2")]
     ok = not sources or variants_run(args.parent, sources, result)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -604,8 +768,12 @@ def variants_run(parent, sources, result) -> bool:
         spec[(label, source)] = (compared, fused)
     if parent is not None:
         for source in sources:
-            variants.append(("parent", parent.resolve(), source, {}, ()))
-            spec[("parent", source)] = (True, True)
+            # a parent whose kernel 2 predates the chunk argument is timed
+            # by ``--source k2``, on merged results, not here
+            fused = source != "ash_score" or _k2_takes_chunk(parent)
+            variants.append(("parent", parent.resolve(), source, {},
+                             () if fused else (SCAN_ONLY[source],)))
+            spec[("parent", source)] = (True, fused)
     libs = build(variants)
     flat, gath, rows, coarse = operands(dev)
     wide = wide_coarse(dev) if "ash_coarse" in sources else None

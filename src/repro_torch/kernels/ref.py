@@ -23,6 +23,12 @@ from repro_torch.device import full_fp32, row_blocked
 
 ID_SENTINEL = 2**31 - 1  # id of an exhausted selection slot
 TOPK_BLOCK_N = 512  # rows per selection tile (as the reference's block_n)
+# the fused dense scan's tiles (csrc/ash_score.cu): narrow, MT queries a
+# block; wide, WIDE_CHUNK queries a block (WIDE_QUERIES), MT a thread,
+# lists of at most WIDE_MAX_L keys (32 * WIDE_MAX_LANES); and the shared
+# memory a block may take on sm_90
+MT, WIDE_CHUNK, WIDE_MAX_L = 8, 32, 128
+SMEM_BLOCK_MAX = 232448
 GATHER_CHUNK = 1 << 16  # candidate positions unpacked at a time
 
 
@@ -284,6 +290,63 @@ def span_geometry(n: int, k: int, k_tilde=None, target_spans: int = 264):
     n_tiles = -(-n // TOPK_BLOCK_N)
     per = -(-n_tiles // max(1, target_spans)) if k <= k_tilde else 1
     return -(-n_tiles // per), per, min(k, k_tilde)
+
+
+def list_lanes(L: int) -> int:
+    """Keys a lane of a selection list of top-L holds (``list_lanes`` in
+    ``csrc/ash_select.cuh``): the least power of two N with 32N >= L."""
+    n = 1
+    while 32 * n < L:
+        n *= 2
+    return n
+
+
+def dense_topk_smem(d_pad: int, L: int, chunk: int) -> int:
+    """Shared bytes a block of the fused dense scan (kernel 2) takes
+    (``topk_smem`` in ``csrc/ash_score.cu``): the chunk's query values,
+    then, narrow, a tile of keys a query, a list of 32 * list_lanes(L)
+    keys and a bound a query (``span_select_bytes``); wide, a list and a
+    bound a query, a take of TOPK_BLOCK_N keys for the warps of each MT
+    queries and a lock a query (``tiled_select_bytes``)."""
+    lists = chunk * 32 * list_lanes(L) + chunk
+    if chunk == MT:
+        return 4 * d_pad * MT + 8 * (MT * TOPK_BLOCK_N + lists)
+    return (4 * d_pad * chunk + 8 * (lists + chunk // MT * TOPK_BLOCK_N)
+            + 4 * chunk)
+
+
+def dense_query_chunk(m: int, d_pad: int, L: int,
+                      smem_max: int = SMEM_BLOCK_MAX) -> int:
+    """Queries a block of the fused dense scan takes: WIDE_CHUNK where
+    m > MT (each row's words then read once for 32 queries), else MT;
+    MT also for lists longer than WIDE_MAX_L and where the wide block's
+    shared memory would pass ``smem_max`` (d_pad past ~1,420)."""
+    if (m > MT and L <= WIDE_MAX_L
+            and dense_topk_smem(d_pad, L, WIDE_CHUNK) <= smem_max):
+        return WIDE_CHUNK
+    return MT
+
+
+def dense_target_spans(m: int, chunk: int = MT, n_sm: int = 132,
+                       wide_blocks=None) -> int:
+    """Spans a query chunk of the fused dense scan aims at: narrow, two
+    512-thread blocks an SM for each chunk; wide, ``wide_blocks``
+    (default one 1,024-thread block an SM) shared among the chunks, so
+    that one wave fills the card and a span's first tiles, where every
+    key passes the bound, are few among its tiles."""
+    if chunk == MT:
+        return 2 * n_sm
+    blocks = n_sm if wide_blocks is None else wide_blocks
+    return max(1, blocks // -(-max(m, 1) // chunk))
+
+
+def dense_span_geometry(n: int, m: int, k: int, k_tilde=None,
+                        chunk: int = MT, n_sm: int = 132, wide_blocks=None):
+    """(n_spans, tiles_per_span, L) of the fused dense scan at m queries
+    taken ``chunk`` a block: :func:`span_geometry` at
+    :func:`dense_target_spans`."""
+    return span_geometry(n, k, k_tilde,
+                         dense_target_spans(m, chunk, n_sm, wide_blocks))
 
 
 def gather_span_geometry(R: int, m: int, k: int, k_tilde=None,

@@ -1,10 +1,12 @@
 // A CPU stand-in for the CUDA runtime, enough to run kernel 5
-// (ash_coarse.cu::ash_coarse_kernel) as a program: one std::thread per
-// CUDA thread, barriers for __syncthreads and __syncwarp, mma.sync and
-// __shfl_xor_sync through a warp's exchange buffer, cp.async as an
-// immediate copy whose source must lie inside an operand even when it
-// reads nothing.  tests/test_torch_coarse_emu.py rewrites the kernel's
-// asm statements and launch into calls of emu.cpp (the definitions).
+// (ash_coarse.cu::ash_coarse_kernel) and kernels 1 and 2
+// (ash_score.cu) as programs: one std::thread per CUDA thread, barriers
+// for __syncthreads and __syncwarp, mma.sync, shuffles, ballots and votes
+// through a warp's exchange buffer, cp.async as an immediate copy whose
+// source must lie inside an operand even when it reads nothing.
+// tests/test_torch_coarse_emu.py and tests/test_torch_score_emu.py
+// rewrite the kernels' asm statements and launches into calls of emu.cpp
+// and score_emu.cpp (the definitions).
 #pragma once
 #include <stdint.h>
 #include <stddef.h>
@@ -36,6 +38,7 @@ struct uint2 { uint32_t x, y; };
 struct uint4 { uint32_t x, y, z, w; };
 struct int4 { int x, y, z, w; };
 struct float2 { float x, y; };
+struct float4 { float x, y, z, w; };
 inline uint2 make_uint2(uint32_t a, uint32_t b) { return {a, b}; }
 template <class T> T __ldg(const T* p) { return *p; }
 void __syncthreads();
@@ -52,9 +55,17 @@ inline float __int_as_float(int u) { float f; memcpy(&f, &u, 4); return f; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
-// declared for the other kernels of the file, which are compiled, not run
+// defined by the programs (emu.cpp, score_emu.cpp) whose kernels use them
 unsigned __ballot_sync(unsigned, int);
+int __any_sync(unsigned, int);
+int __shfl_sync(unsigned, int v, int src);
+int __syncthreads_or(int);
 int __popc(unsigned);
+int __ffs(int);
+int atomicAdd(int*, int);
+int atomicCAS(int*, int, int);
+int atomicExch(int*, int);
+void __threadfence_block();
 unsigned long long atomicMin(unsigned long long*, unsigned long long);
 using std::max;
 using std::min;

@@ -17,6 +17,7 @@ order); the coarse kernels EQUAL to their plain versions (exact integer
 accumulation, one epilogue order).
 """
 import copy
+import ctypes
 import dataclasses
 import os
 
@@ -596,6 +597,80 @@ def test_fused_k_tilde_below_k_is_per_tile(cuda, coarse, n, k, k_tilde):
             full, torch.ones(n, dtype=torch.bool, device=cuda)
             if valid is None else valid, k, k_tilde)
         assert torch.equal(ts, ws) and torch.equal(ti, wi), n_valid
+
+
+# -- kernel 2's tiles: 8 queries a block (m <= 8) or 32 -------------------
+_TILE_M = (1, 8, 9, 31, 32, 33, 128, 1024)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("b", [1, 2, 4, 8])
+@pytest.mark.parametrize("m", _TILE_M)
+def test_fused_tiles_equal_sorted_materialized(cuda, m, b, metric):
+    """Kernel 2 at every query count around its two tiles, every bitrate
+    and metric, n not a multiple of 512: EQUAL to a stable top-k of
+    kernel 1's scores under the four masks (k <= k~), one scan and one
+    merge a call, counted under ``ash_score_topk_wide`` where m > 8."""
+    n, k = 3001, 40
+    args = _args(m * 10 + b, b, 64, n, m, 16, metric, cuda)
+    full = TK.ash_score_cuda(*args, b=b, metric=metric)
+    wide = TK.launch_counts["ash_score_topk_wide"]
+    _assert_fused_exact(lambda nv, rv: TK.ash_score_topk_cuda(
+        *args, nv, rv, b=b, k=k, metric=metric), full, n, k)
+    assert TK.launch_counts["ash_score_topk_wide"] - wide == (
+        4 if m > TR.MT else 0)
+
+
+@pytest.mark.parametrize("m", _TILE_M)
+def test_fused_tiles_k_tilde_below_k_is_per_tile(cuda, m):
+    """k~ < k on both tiles: one span a tile, the per-tile semantics of
+    ``ref.tile_topk_ref`` on kernel 1's scores, under the four masks."""
+    n, k, k_tilde = 2600, 12, 5
+    args = _args(m, 2, 100, n, m, 16, "l2", cuda)
+    full = TK.ash_score_cuda(*args, b=2, metric="l2")
+    for n_valid, rv in _mask_cases(n, cuda, seed=2):
+        ts, ti = TK.ash_score_topk_cuda(*args, n_valid, rv, b=2, k=k,
+                                        k_tilde=k_tilde, metric="l2")
+        valid = TR.row_mask(n, n_valid, rv, cuda)
+        ws, wi = TR.tile_topk_ref(
+            full, torch.ones(n, dtype=torch.bool, device=cuda)
+            if valid is None else valid, k, k_tilde)
+        assert torch.equal(ts, ws) and torch.equal(ti, wi), n_valid
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_fused_rows_alone_equal_rows_in_batches(cuda, metric):
+    """A query's top-k alone (m = 1, the narrow tile) EQUALS its row in
+    batches of 32, 128 and 1,024 queries (the wide tile), scores and
+    ids: a row's answer does not depend on the rows beside it."""
+    n, k = 20011, 100
+    args = _args(99, 2, 128, n, 1024, 64, metric, cuda)
+    q_ops = (1, 5, 6)  # q, ipq, qterm: one row a query
+    alone = [TK.ash_score_topk_cuda(
+        *[a[i:i + 1] if t in q_ops and a is not None else a
+          for t, a in enumerate(args)], b=2, k=k, metric=metric)
+        for i in range(0, 1024, 37)]
+    for m in (32, 128, 1024):
+        batch = [a[:m] if t in q_ops and a is not None else a
+                 for t, a in enumerate(args)]
+        ts, ti = TK.ash_score_topk_cuda(*batch, b=2, k=k, metric=metric)
+        for r, i in enumerate(range(0, 1024, 37)):
+            if i < m:
+                assert torch.equal(ts[i], alone[r][0][0]), (m, i)
+                assert torch.equal(ti[i], alone[r][1][0]), (m, i)
+
+
+@pytest.mark.parametrize("L", [1, 100, 128, 512])
+@pytest.mark.parametrize("d_pad", [32, 128, 1024])
+def test_fused_shared_bytes_as_the_wrapper_counts(cuda, d_pad, L):
+    """``ref.dense_topk_smem`` (which picks the tile) is the block's
+    shared memory as the kernel's launch sizes it."""
+    lib = TK._kernels("ash_score")
+    lib.ash_score_topk_smem.restype = ctypes.c_size_t
+    lib.ash_score_topk_smem.argtypes = [ctypes.c_int] * 3
+    for chunk in (TR.MT, TR.WIDE_CHUNK):
+        assert lib.ash_score_topk_smem(d_pad, L, chunk) == \
+            TR.dense_topk_smem(d_pad, L, chunk)
 
 
 @pytest.mark.parametrize("n_spans,L,k", [

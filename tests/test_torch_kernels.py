@@ -211,7 +211,9 @@ def test_cpu_path_counts_no_launch_and_check_refuses():
                                   k=3)
     TK.ash_topk_merge_cuda(TR.make_keys(torch.zeros(2, 4), torch.zeros(
         2, 4, dtype=torch.int32)), 2, 4)
-    assert len(TK.launch_counts) == 7
+    # seven kernels and the wide tile's share of kernel 2's launches
+    assert len(TK.launch_counts) == 8
+    assert "ash_score_topk_wide" in TK.launch_counts
     assert set(TK.launch_counts.values()) == {0}
     assert set(TK.merge_launches.values()) == {0}
     args = list(_torch_args(a, "dot"))

@@ -61,6 +61,92 @@ def test_span_geometry_covers_rows_in_whole_tiles(n, k, k_tilde, target):
         assert n_spans <= max(1, target) or per == 1
 
 
+# -- the fused dense scan's tiles (kernel 2) --------------------------------
+
+@pytest.mark.parametrize("m,chunk", [(1, 8), (2, 8), (8, 8), (9, 32),
+                                     (31, 32), (32, 32), (33, 32),
+                                     (128, 32), (1024, 32), (5000, 32)])
+def test_dense_query_chunk_follows_m(m, chunk):
+    """8 queries a block up to m = 8, 32 past it, at the main path's
+    d_pad and list lengths; 8 for lists longer than WIDE_MAX_L."""
+    for d_pad, L in ((128, 100), (32, 10), (256, 128), (64, 1)):
+        assert TR.dense_query_chunk(m, d_pad, L) == chunk
+    for L in (129, 256, 512):
+        assert TR.dense_query_chunk(m, 128, L) == TR.MT
+
+
+@pytest.mark.parametrize("d_pad,L,wide", [(1024, 128, True),
+                                          (1408, 128, True),
+                                          (1536, 128, False),
+                                          (1408, 32, True),
+                                          (8192, 1, False)])
+def test_dense_query_chunk_narrow_where_wide_does_not_fit(d_pad, L, wide):
+    """The wide tile only where its block's shared memory fits the
+    card's 227 KB."""
+    assert (TR.dense_query_chunk(100, d_pad, L) == TR.WIDE_CHUNK) == wide
+    assert (TR.dense_topk_smem(d_pad, L, TR.WIDE_CHUNK)
+            <= TR.SMEM_BLOCK_MAX) == wide
+    assert TR.dense_query_chunk(100, d_pad, L, smem_max=10**9) == \
+        TR.WIDE_CHUNK
+
+
+def test_dense_topk_smem_counts_the_blocks_operands():
+    # t2i's shape, wide: 32 queries x 128 dims of f32, a list of 128 keys
+    # and a bound a query, 512 keys a group of 8 queries, a lock a query
+    assert TR.dense_topk_smem(128, 100, 32) == (
+        4 * 128 * 32 + 8 * (32 * 128 + 32 + 4 * 512) + 4 * 32)
+    # narrow: 8 queries' values, a tile of 512 keys, a list and a bound
+    # a query
+    assert TR.dense_topk_smem(128, 100, 8) == (
+        4 * 128 * 8 + 8 * (8 * 512 + 8 * 128 + 8))
+    assert [TR.list_lanes(L) for L in (1, 32, 33, 64, 100, 128, 129, 512)] \
+        == [1, 1, 2, 2, 4, 4, 8, 16]
+
+
+@pytest.mark.parametrize("n", [1, 511, 513, 6000, 10**6, 10**7])
+@pytest.mark.parametrize("m", [1, 8, 9, 32, 33, 128, 1024, 9000])
+@pytest.mark.parametrize("k,k_tilde", [(10, None), (100, None), (12, 5)])
+def test_dense_span_geometry_covers_rows_in_whole_tiles(n, m, k, k_tilde):
+    """Both tiles' spans cover every row in whole 512-row tiles, one
+    span a tile when k_tilde < k.  The narrow tile takes two blocks an
+    SM for each query chunk; the wide one shares one an SM among its
+    chunks, so a chunk's spans shrink as the chunks grow and the grid
+    stays within one wave of 132 blocks where spans allow."""
+    try:
+        TR.topk_geometry(n, k, k_tilde)
+    except ValueError:
+        return
+    n_tiles = -(-n // TILE)
+    for chunk in (TR.MT, TR.WIDE_CHUNK):
+        n_spans, per, L = TR.dense_span_geometry(n, m, k, k_tilde, chunk,
+                                                 132)
+        chunks = -(-m // chunk)
+        target = 264 if chunk == TR.MT else max(1, 132 // chunks)
+        assert TR.dense_target_spans(m, chunk, 132) == target
+        assert L == min(k, k if k_tilde is None else k_tilde)
+        assert (n_spans - 1) * per < n_tiles <= n_spans * per
+        if k_tilde is not None and k_tilde < k:
+            assert per == 1 and n_spans == n_tiles
+        else:
+            assert (n_spans, per, L) == TR.span_geometry(n, k, k_tilde,
+                                                          target)
+            if chunk == TR.WIDE_CHUNK:
+                assert n_spans * chunks <= max(132, chunks) or per == 1
+    assert TR.dense_target_spans(m, TR.WIDE_CHUNK, 132, 264) == \
+        max(1, 264 // -(-m // TR.WIDE_CHUNK))
+
+
+def test_wide_launch_counter_resets_with_the_others():
+    assert "ash_score_topk_wide" in TK.launch_counts
+    with TK._count_lock:
+        TK.launch_counts["ash_score_topk_wide"] = 3
+        TK.launch_counts["ash_score_topk"] = 3
+    assert TK.kernel_launches() >= 3
+    TK.reset_launch_counts()
+    assert TK.launch_counts["ash_score_topk_wide"] == 0
+    assert TK.kernel_launches() == 0
+
+
 @pytest.mark.parametrize("n,k,k_tilde", [(700, 10, 4), (300, 2, 1),
                                          (1500, 13, 4), (128, 129, None)])
 def test_span_geometry_refuses_as_the_jax_package(n, k, k_tilde):
